@@ -18,7 +18,18 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    launch count over the sweep must be the expected count per block;
 5. determinism and parity: one block twice on the card gives bitwise-equal
    logits; in float32 the card and the CPU agree on neighbor indices and
-   logit argmax.
+   logit argmax;
+6. slab-gradient kernel vs plain: the window gather's backward kernel
+   against its plain PyTorch version at every conv shape of the flagship,
+   bf16 and one float32 case: two runs bitwise equal, float32 within 1e-6
+   relative, bf16 within one bf16 ulp, timed like phase 3;
+7. train: the flagship at full width (bf16 compute, weights from
+   torch.Generator seed 0, S3DIS class weights) takes training steps on 4
+   blocks of 8192 points: the backward kernels' determinism one op at a
+   time, launch counts per block of both kernels, a finite loss at every
+   step, a falling loss over 20 steps on one batch, a bitwise-repeatable
+   step, the non-finite guard, float32 gradient parity card vs CPU (cosine),
+   and train points/s with peak memory.
 
 Prints one JSON line describing the kernels, then the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -33,10 +44,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_POINTS = 8192
 N_BLOCKS = 8
+TRAIN_BLOCKS = 4            # blocks per training step (bench.py's batch)
 # what a phase must meet
 PARITY_NBR_MIN = 0.999      # share of valid neighbor slots equal, card vs CPU
 PARITY_ARGMAX_MIN = 0.99    # share of points with equal logit argmax
 PROB_SUM_TOL = 1e-3
+DSLAB_F32_RTOL = 1e-6       # slab-gradient kernel vs plain, float32
+GRAD_COSINE_MIN = 0.999     # flat gradient, float32 card vs CPU
 
 
 def check(cond, msg):
@@ -112,12 +126,14 @@ def phase_device():
 def phase_build():
     from pointcloudsegmentation_tpu_torch.kernels import window_gather as wg
 
-    built = wg.build(force=True)
-    log(f"[build] window_gather.cu -> sm_90a in {built.seconds:.2f} s; "
-        "ptxas:")
-    for line in built.log.splitlines():
-        if "ptxas" in line:
-            log(f"    {line.strip()}")
+    t0 = time.perf_counter()
+    for name, built in wg.build_all(force=True).items():
+        log(f"[build] {name}.cu -> sm_90a in {built.seconds:.2f} s; ptxas:")
+        for line in built.log.splitlines():
+            if "ptxas" in line:
+                log(f"    {line.strip()}")
+    log(f"[build] both kernels (one nvcc each, in parallel) in "
+        f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     mk = subprocess.run(["make", "-C", os.path.join(ROOT, "csrc"), "-B"],
                         capture_output=True, text=True, timeout=300)
@@ -326,6 +342,247 @@ def phase_parity(serve, cfg, block, card):
     return bad, total
 
 
+def bf16_ulp(x):
+    """One bfloat16 ulp at each element of float32 ``x`` (8 bits of
+    mantissa); the smallest normal's ulp at zero."""
+    import torch
+
+    e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
+def phase_dslab(model, cfg, card):
+    """The slab-gradient kernel against its plain version at each conv
+    shape of the flagship (bf16), plus the L0 K=32 shape in float32."""
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.kernels import window_gather as wg
+
+    tile, window = model.encoder.win_tile, model.encoder.win_window
+    s = tile + 2 * window
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    convs = [sh for sh in gather_shapes(model, cfg) if sh[0].endswith("conv")]
+    cases = list(dict.fromkeys((n, k, f, dt) for _, n, k, f, dt in convs))
+    cases.append(cases[0][:3] + (torch.float32,))
+    names = {(n, k, f): name for name, n, k, f, _ in convs}
+    rows = []
+    for n, k, f, dtype in cases:
+        name = names[(n, k, f)]
+        g = torch.randn((n, k, f), generator=gen, device="cuda").to(dtype)
+        lidx = torch.randint(0, s, (n, k), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        lidx[:, 0] = 0          # the slab's first row ...
+        lidx[:, -1] = s - 1     # ... and its last
+        lidx[::3, 1] = 7        # one row read by a third of the slots
+        lidx[::2, 2] = lidx[::2, 3]      # many repeated rows
+        got = wg.dslab_bwd(g, lidx, window, tile)
+        again = wg.dslab_bwd(g, lidx, window, tile)
+        want = wg.dslab_bwd_reference(g, lidx, window, tile)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again),
+              f"slab-gradient kernel not repeatable at {name} N={n} K={k} "
+              f"F={f} {dtype}")
+        d = (got.float() - want.float()).abs()
+        if dtype == torch.float32:
+            bound = DSLAB_F32_RTOL * want.abs()
+            what = f"<= {DSLAB_F32_RTOL:g} relative"
+        else:
+            bound = bf16_ulp(want.float())
+            what = "<= 1 bf16 ulp"
+        n_diff = int((d > 0).sum())
+        check(bool((d <= bound).all()),
+              f"slab-gradient kernel != plain at {name} N={n} K={k} F={f} "
+              f"{dtype}: {int((d > bound).sum())} elements beyond {what}")
+        err = d.max().item()
+        kernel = lambda: wg.dslab_bwd(g, lidx, window, tile)  # noqa: E731
+        plain = lambda: wg.dslab_bwd_reference(  # noqa: E731
+            g, lidx, window, tile)
+        eager_ms, eager_plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+        mb = (g.numel() + want.numel()) * g.element_size() / 1e6
+        rows.append(dict(name=name, n=n, k=k, f=f, dtype=str(dtype),
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        log(f"[dslab] {name:8s} N={n:5d} K={k:2d} F={f:3d} {str(dtype):14s} "
+            f"repeatable; {n_diff} of {d.numel()} elements differ from plain "
+            f"(max {err:.3e}, {what}); device ms (graph replay): kernel "
+            f"{ms:.4f} ({mb / ms:.1f} GB/s read+written), plain "
+            f"{plain_ms:.4f}; eager ms: kernel {eager_ms:.4f}, plain "
+            f"{eager_plain_ms:.4f} [{card}]")
+    return rows
+
+
+def backward_determinism(card):
+    """The backward of each indexing and segment op of the training path,
+    run twice at flagship-like sizes on the card: bitwise equal or fail."""
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.ops import neighbors, segments
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n, v, f, nt, p, ko = 8192, 4096, 64, 32, 256, 8
+    seg = torch.randint(0, v + 1, (n,), generator=gen, device="cuda")
+    seg[: n // 4] = 5                     # one crowded voxel (ties in max)
+    pool_idx = torch.randint(0, n, (nt, p), generator=gen, device="cuda",
+                             dtype=torch.int32)
+    ov_idx = torch.randint(0, p + 1, (n, ko), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    x = torch.randn((n, f), generator=gen, device="cuda")
+    x[: n // 8] = 1.0                     # tied maxima split the gradient
+    xv = torch.randn((v, f), generator=gen, device="cuda")
+    ops = {
+        "segment_sum (sort + segment_reduce)":
+            (x, lambda t: segments.segment_sum(t, seg, v)),
+        "segment_max (scatter_reduce amax)":
+            (x, lambda t: segments.segment_max(t, seg, v)),
+        "segment_unpool (index)":
+            (xv, lambda t: segments.segment_unpool(t, seg)),
+        "pool gather feats[pool_idx] (index)":
+            (x, lambda t: t[pool_idx.reshape(-1).long()]),
+        "pool_take flat[ppos + tbase] (index)":
+            (x[: nt * p].reshape(nt, p, f),
+             lambda t: neighbors.pool_take(t, ov_idx, n // nt)),
+    }
+    for name, (inp, fn) in ops.items():
+        grads = []
+        for _ in range(2):
+            t = inp.detach().clone().requires_grad_()
+            out = fn(t)
+            cot = torch.randn(out.shape, device="cuda",
+                              generator=torch.Generator(device="cuda")
+                              .manual_seed(3))
+            out.backward(cot)
+            grads.append(t.grad)
+        torch.cuda.synchronize()
+        check(torch.equal(grads[0], grads[1]),
+              f"backward of {name} differs between two runs")
+        log(f"[train] backward of {name}: bitwise equal in two runs "
+            f"[{card}]")
+
+
+def make_train_batches(device):
+    """bench.py's training input: 2 batches of 4 synthetic S3DIS-shaped
+    blocks of 8192 points (toy.toy_batches, seed 0)."""
+    from pointcloudsegmentation_tpu.data import toy
+    from pointcloudsegmentation_tpu_torch.data.provider import to_device
+
+    return [to_device(b, device) for b in toy.toy_batches(
+        2, batch_size=TRAIN_BLOCKS, num_points=N_POINTS, kind="room",
+        num_classes=13, feat_dim=12)]
+
+
+def phase_train(cfg, card):
+    import dataclasses
+    import math
+
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.kernels import window_gather as wg
+    from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+
+    backward_determinism(card)
+    trainer = Trainer(cfg, device="cuda")
+    state0 = trainer.init_state(torch.Generator().manual_seed(0))
+    batches = make_train_batches("cuda")
+    log(f"[train] {cfg.model} {cfg.compute_dtype}: {trainer.num_params} "
+        f"params, {TRAIN_BLOCKS} blocks x {N_POINTS} points per step")
+    state, m = trainer.train_step(state0, batches[0])     # warm-up
+    torch.cuda.synchronize()
+    check(math.isfinite(float(m["loss"])), "warm-up loss not finite")
+
+    # launch counts over one step of the training path
+    wg.gather_fwd.launches = wg.dslab_bwd.launches = 0
+    state, m = trainer.train_step(state, batches[1])
+    torch.cuda.synchronize()
+    launches = {"window_gather": wg.gather_fwd.launches,
+                "window_dslab": wg.dslab_bwd.launches}
+    convs = sum(len(st.convs) for st in trainer.model.encoder.arch.stages)
+    per_block = len(gather_shapes(trainer.model, cfg))
+    log(f"[train] launches in one step: window_gather "
+        f"{launches['window_gather']} ({launches['window_gather'] / TRAIN_BLOCKS:g}"
+        f" per block, expected {per_block}), window_dslab "
+        f"{launches['window_dslab']} ({launches['window_dslab'] / TRAIN_BLOCKS:g}"
+        f" per block, expected {convs})")
+    check(launches["window_gather"] == per_block * TRAIN_BLOCKS,
+          f"window_gather launched {launches['window_gather']} times")
+    check(launches["window_dslab"] == convs * TRAIN_BLOCKS,
+          f"window_dslab launched {launches['window_dslab']} times")
+
+    # 20 steps on one batch: finite, falling loss
+    losses = []
+    st = state0
+    for _ in range(20):
+        st, m = trainer.train_step(st, batches[0])
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    log(f"[train] 20 steps on one batch: loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f} (min {min(losses):.5f}), every step finite")
+
+    # one step twice from the same state: bitwise equal
+    a, _ = trainer.train_step(state, batches[0])
+    b, _ = trainer.train_step(state, batches[0])
+    torch.cuda.synchronize()
+    for f in ("params", "mu", "nu", "count"):
+        check(torch.equal(getattr(a, f), getattr(b, f)),
+              f"two runs of one step differ in {f}")
+    log("[train] one step twice from one state: params, mu, nu and count "
+        "bitwise equal")
+
+    # the non-finite guard
+    bad = dict(batches[0], feats=batches[0]["feats"].clone())
+    bad["feats"][1, 100, 0] = float("nan")
+    c, mc = trainer.train_step(a, bad)
+    torch.cuda.synchronize()
+    check(int(mc["skipped"]) == 1, "NaN batch not skipped")
+    for f in ("params", "mu", "nu", "count"):
+        check(torch.equal(getattr(c, f), getattr(a, f)),
+              f"NaN batch changed {f}")
+    log(f"[train] NaN feature: skipped={int(mc['skipped'])}, params, mu, nu "
+        f"and count unchanged, step {a.step} -> {c.step}")
+
+    # throughput: median of 3 chains of 10 steps, one sync per chain
+    valid = int(batches[0]["mask"].sum())
+    torch.cuda.reset_peak_memory_stats()
+    chains = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(10):
+            state, m = trainer.train_step(state, batches[i % 2])
+        float(m["loss"])
+        chains.append((time.perf_counter() - t0) / 10)
+    chains.sort()
+    pps = valid / chains[1]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[train] step s (3 chains of 10): "
+        f"{', '.join(f'{t:.4f}' for t in chains)}; median: {valid} valid "
+        f"points / {chains[1]:.4f} s = {pps:.1f} train points/s; peak "
+        f"memory {peak:.3f} GiB [{card}]")
+
+    # float32 gradient parity, card vs CPU, one block, train=False loss
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    block = {k: v[:1].cpu() for k, v in batches[0].items()}
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(f32, device=dev)
+        st = tr.init_state(torch.Generator().manual_seed(0))
+        t0 = time.perf_counter()
+        loss, g = tr.loss_and_grad(st, block, train=False)
+        grads[dev] = (float(loss), g.double().cpu())
+        log(f"[train] float32 loss and grad on {dev}: {float(loss):.6f} in "
+            f"{time.perf_counter() - t0:.2f} s")
+    gc, gh = grads["cuda"][1], grads["cpu"][1]
+    cos = float(gc @ gh / (gc.norm() * gh.norm()))
+    rel = float((gc - gh).norm() / gh.norm())
+    log(f"[train] float32 flat gradient card vs CPU: cosine {cos:.6f} "
+        f"(need >= {GRAD_COSINE_MIN}), max |d| {(gc - gh).abs().max():.3e}"
+        f", relative L2 {rel:.3e}, loss {grads['cuda'][0]:.6f} vs "
+        f"{grads['cpu'][0]:.6f} [{card}]")
+    check(cos >= GRAD_COSINE_MIN, f"gradient cosine {cos}")
+    return launches, pps, peak
+
+
 def main() -> int:
     try:
         import torch
@@ -357,22 +614,38 @@ def main() -> int:
     blocks, _ = make_blocks("cpu")
     b0 = blocks[0]
     phase_parity(model, cfg, (b0["xyz"], b0["feats"], b0["mask"]), card)
+    drows = phase_dslab(model, cfg, card)
+    train_launches, train_pps, peak = phase_train(cfg, card)
 
     main_row = next(r for r in rows if r["name"].endswith("conv"))
+    dmain = drows[0]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; "
         f"kernel ms/plain_ms below are {main_row['name']} N={main_row['n']} "
-        f"K={main_row['k']} F={main_row['f']} {main_row['dtype']}; eval "
-        f"{pps:.1f} dense points/s")
+        f"K={main_row['k']} F={main_row['f']} {main_row['dtype']} (gather) "
+        f"and {dmain['name']} N={dmain['n']} K={dmain['k']} F={dmain['f']} "
+        f"{dmain['dtype']} (slab gradient); launches are the serve sweep's "
+        f"plus one training step's; eval {pps:.1f} dense points/s, train "
+        f"{train_pps:.1f} points/s, peak {peak:.3f} GiB")
     print(json.dumps({"kernels": [{
         "name": "window_gather",
         "route": "cuda",
         "source": "pointcloudsegmentation_tpu_torch/csrc/window_gather.cu",
         "replaces":
             "pointcloudsegmentation_tpu/ops/pallas/window_gather.py:95",
-        "launches": launches,
+        "launches": launches + train_launches["window_gather"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
+    }, {
+        "name": "window_dslab",
+        "route": "cuda",
+        "source": "pointcloudsegmentation_tpu_torch/csrc/window_dslab.cu",
+        "replaces":
+            "pointcloudsegmentation_tpu/ops/pallas/window_gather.py:125",
+        "launches": train_launches["window_dslab"],
+        "max_abs_err": max(r["max_abs_err"] for r in drows),
+        "ms": dmain["ms"],
+        "plain_ms": dmain["plain_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,12 +13,14 @@ Rules the port keeps:
   and the compute dtype is a constructor argument;
 - it reads no environment variables: the JAX package's ``PCS_*`` knobs are
   fixed at their default values;
-- the windowed gather runs as a hand-written CUDA kernel on CUDA tensors
-  (``kernels/window_gather.py``) and as its plain PyTorch version on CPU
-  tensors.
+- the windowed gather and its backward run as hand-written CUDA kernels on
+  CUDA tensors (``kernels/window_gather.py``) and as their plain PyTorch
+  versions on CPU tensors.
 
 Ported so far: the flagship ``pointnet_s3dis`` inference path (block sweep,
-softmax, dense interpolation).  See ROADMAP.md for what is still to port.
+softmax, dense interpolation) and its training step (``train/loop.py``;
+``python -m pointcloudsegmentation_tpu_torch.profile_train`` profiles it on
+the card).  See ROADMAP.md for what is still to port.
 """
 
 __version__ = "0.1.0"

@@ -9,6 +9,17 @@ from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
+class OptimConfig:
+    """Adam + staircase exponential LR decay with a floor."""
+
+    lr_init: float = 1e-3
+    lr_clip: float = 1e-5
+    decay_rate: float = 0.5
+    decay_epoch: int = 50          # epochs per decay step
+    epoch_steps: int = 2000        # optimizer steps per epoch
+
+
+@dataclass(frozen=True)
 class DataConfig:
     num_points: int = 8192         # static per-block point budget
     num_classes: int = 13
@@ -24,7 +35,10 @@ class DataConfig:
 class TrainConfig:
     model: str = "pointnet_s3dis"  # registry key (train.model_zoo)
     data: DataConfig = field(default_factory=DataConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
     compute_dtype: str = "bfloat16"  # "float32" | "bfloat16" (params f32)
+    seed: int = 0                  # dropout streams derive from (seed, step)
+    log_every: int = 120
 
 
 # S3DIS class weights (train_graph_pool_new.py:46-49)
@@ -35,16 +49,39 @@ S3DIS_CLASS_WEIGHTS = (
 
 
 def s3dis_config(**overrides) -> TrainConfig:
-    """The S3DIS preset; ``data_<field>=`` overrides a DataConfig field,
-    any other keyword a TrainConfig field."""
+    """The S3DIS preset; see ``_replace`` for the override keywords."""
     base = TrainConfig(
         model="pointnet_s3dis",
         data=DataConfig(num_points=8192, num_classes=13, block_size=3.0,
                         voxel_sizes=(0.15, 0.45), caps=(4096, 1024),
-                        feat_dim=12, class_weights=S3DIS_CLASS_WEIGHTS))
+                        feat_dim=12, class_weights=S3DIS_CLASS_WEIGHTS),
+        optim=OptimConfig(epoch_steps=2000, decay_epoch=50))
+    return _replace(base, overrides)
+
+
+def scannet_config(**overrides) -> TrainConfig:
+    """The ScanNet preset: no color, label 0 ignored and the rest shifted
+    by -1 (train_gpn_scannet_new.py:66-88)."""
+    base = TrainConfig(
+        model="pointnet_scannet",
+        data=DataConfig(num_points=8192, num_classes=20, block_size=3.0,
+                        voxel_sizes=(0.15, 0.45), caps=(4096, 1024),
+                        feat_dim=0, ignore_label=0),
+        optim=OptimConfig(epoch_steps=5000, decay_epoch=50))
+    return _replace(base, overrides)
+
+
+def _replace(cfg: TrainConfig, overrides: dict) -> TrainConfig:
+    """``data_<field>=`` overrides a DataConfig field, ``optim_<field>=`` an
+    OptimConfig field, any other keyword a TrainConfig field."""
     data_over = {k[5:]: v for k, v in overrides.items()
                  if k.startswith("data_")}
-    top = {k: v for k, v in overrides.items() if not k.startswith("data_")}
+    optim_over = {k[6:]: v for k, v in overrides.items()
+                  if k.startswith("optim_")}
+    top = {k: v for k, v in overrides.items()
+           if not k.startswith(("data_", "optim_"))}
     if data_over:
-        top["data"] = dataclasses.replace(base.data, **data_over)
-    return dataclasses.replace(base, **top)
+        top["data"] = dataclasses.replace(cfg.data, **data_over)
+    if optim_over:
+        top["optim"] = dataclasses.replace(cfg.optim, **optim_over)
+    return dataclasses.replace(cfg, **top)

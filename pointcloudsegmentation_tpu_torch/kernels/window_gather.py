@@ -1,20 +1,27 @@
-"""Windowed slab gather: the Hopper port of the TPU kernel
-``pointcloudsegmentation_tpu/ops/pallas/window_gather.py:gather_fwd``.
+"""Windowed slab gather and its backward: the Hopper ports of the TPU
+kernels ``pointcloudsegmentation_tpu/ops/pallas/window_gather.py:gather_fwd``
+(K2) and ``:dslab_bwd`` (K3).
 
-    out[i, k, :] = feats_padded[(i // T) * T + lidx[i, k]]
+    out[i, k, :]   = feats_padded[(i // T) * T + lidx[i, k]]            (K2)
+    dslab[t, s, :] = sum_{i in tile t, k : lidx[i, k] == s} g[i, k, :]  (K3)
 
 where ``feats_padded`` is ``feats`` with W zero rows on each side, T the
-tile and W the window; ``lidx`` is slab-local in ``[0, T + 2W)`` (an index
-outside that range reads zeros, as the TPU kernel's one-hot rows do).
+tile and W the window; ``lidx`` is slab-local in ``[0, S)``, S = T + 2W (an
+index outside that range reads zeros and receives no gradient, as the TPU
+kernels' one-hot rows do).  ``WindowGather`` is the differentiable gather:
+K2 forward, K3 then the overlap-add of the slabs into point rows backward.
 
-On a CUDA tensor ``gather_fwd`` launches the kernel in
-``csrc/window_gather.cu`` (built with nvcc for sm_90a at first use into
-``_build/`` and bound through ctypes) and raises if the build or the launch
-fails; on a CPU tensor it runs ``gather_fwd_reference``.  The kernel is a
-byte copy and matches the reference exactly for every dtype.  It is bounded
-by memory (N*K*F output elements, no arithmetic); the design notes are at the
-top of the CUDA source.  No backward is ported: ``gather_fwd`` refuses
-inputs that require grad.
+On CUDA tensors ``gather_fwd`` and ``dslab_bwd`` launch the kernels in
+``csrc/window_gather.cu`` and ``csrc/window_dslab.cu`` (built with nvcc for
+sm_90a at first use into ``_build/`` and bound through ctypes) and raise if
+the build or the launch fails; on CPU tensors they run their plain versions.
+K2 is a byte copy and matches its plain version exactly for every dtype.
+K3 takes float32 or bfloat16 g, sums in float32 in ascending slot order
+without float atomics, so it is bitwise repeatable, and rounds once to g's
+dtype.  K2 is bounded by memory, K3 by its index work; the design notes
+are at the top of each CUDA source.  The raw entry
+points refuse tensors that require grad: a differentiable gather goes
+through ``WindowGather``.
 """
 from __future__ import annotations
 
@@ -22,20 +29,30 @@ import ctypes
 import os
 import subprocess
 import time
-from typing import NamedTuple, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, NamedTuple, Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "window_gather.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
-_LIB_PATH = os.path.join(BUILD_DIR, "libpcs_window_gather.so")
+SOURCES = {"window_gather": os.path.join(_PKG, "csrc", "window_gather.cu"),
+           "window_dslab": os.path.join(_PKG, "csrc", "window_dslab.cu")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_I, _P = ctypes.c_int, ctypes.c_void_p
+_ARGTYPES = {
+    # feats, lidx, out, n, k, row_bytes, tile, window, stream
+    "window_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # g, lidx, dslab, n, k, f, tile, window, dtype, stream
+    "window_dslab": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class Build(NamedTuple):
-    """A build of the kernel library: its path, and for a fresh build the
+    """A build of one kernel library: its path, and for a fresh build the
     seconds nvcc took and its output (the ``-Xptxas -v`` report)."""
 
     path: str
@@ -43,7 +60,7 @@ class Build(NamedTuple):
     log: str = ""
 
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -53,49 +70,62 @@ def _nvcc() -> str:
     return default if os.path.exists(default) else "nvcc"
 
 
-def build(force: bool = False) -> Build:
-    """Compile the kernel library if it is missing or older than its source
-    (or always with ``force``).  Raises on failure."""
-    if (not force and os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(SOURCE)):
-        return Build(_LIB_PATH)
+def _lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"libpcs_{name}.so")
+
+
+def build(name: str, force: bool = False) -> Build:
+    """Compile kernel library ``name`` (a key of ``SOURCES``) if it is
+    missing or older than its source (or always with ``force``).  Raises on
+    failure."""
+    source, lib = SOURCES[name], _lib_path(name)
+    if (not force and os.path.exists(lib)
+            and os.path.getmtime(lib) >= os.path.getmtime(source)):
+        return Build(lib)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp, SOURCE]
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp, source]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=600)
     except FileNotFoundError as e:
-        raise RuntimeError("nvcc not found: the window-gather kernel is "
-                           "built from csrc/window_gather.cu with the CUDA "
-                           "toolkit") from e
+        raise RuntimeError(f"nvcc not found: the {name} kernel is built "
+                           f"from {source} with the CUDA toolkit") from e
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{log}")
-    os.replace(tmp, _LIB_PATH)
-    return Build(_LIB_PATH, seconds, log)
+    os.replace(tmp, lib)
+    return Build(lib, seconds, log)
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build().path)
-        lib.pcs_window_gather.restype = ctypes.c_int
-        lib.pcs_window_gather.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
-        _lib = lib
-    return _lib
+def build_all(force: bool = False) -> Dict[str, Build]:
+    """Build every kernel library, one nvcc per source, all at once."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        futures = {name: pool.submit(build, name, force) for name in SOURCES}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def _load(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        lib = ctypes.CDLL(build(name).path)
+        fn = getattr(lib, f"pcs_{name}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[name]
+        _libs[name] = lib
+    return _libs[name]
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def gather_fwd_reference(feats: torch.Tensor, lidx: torch.Tensor,
                          window: int, tile: int) -> torch.Tensor:
-    """Plain PyTorch version: zero-pad, then index.  [N, F], [N, K] ->
-    [N, K, F]."""
+    """Plain PyTorch version of K2: zero-pad, then index.  [N, F], [N, K]
+    -> [N, K, F]."""
     n = feats.shape[0]
     s = tile + 2 * window
     fp = torch.nn.functional.pad(feats, (0, 0, window, window))
@@ -106,37 +136,60 @@ def gather_fwd_reference(feats: torch.Tensor, lidx: torch.Tensor,
     return torch.where(ok[..., None], out, torch.zeros_like(out))
 
 
-def _check(feats: torch.Tensor, lidx: torch.Tensor, window: int,
-           tile: int) -> None:
-    if feats.dim() != 2 or lidx.dim() != 2:
-        raise ValueError(f"feats must be [N, F] and lidx [N, K], got "
-                         f"{tuple(feats.shape)} and {tuple(lidx.shape)}")
-    n = feats.shape[0]
-    if lidx.shape[0] != n:
-        raise ValueError(f"lidx has {lidx.shape[0]} rows, feats {n}")
+def dslab_bwd_reference(g: torch.Tensor, lidx: torch.Tensor, window: int,
+                        tile: int) -> torch.Tensor:
+    """Plain PyTorch version of K3: a stable sort of the slots by (tile,
+    slab row), then ``segment_reduce`` in float32 (each row's slots summed
+    in ascending slot order), cast to g's dtype.  [N, K, F], [N, K] ->
+    [N/T, S, F]."""
+    n, k, f = g.shape
+    s = tile + 2 * window
+    nt = n // tile
+    lid = lidx.reshape(-1).long()
+    slot_tile = torch.arange(n * k, device=g.device) // (tile * k)
+    ok = (lid >= 0) & (lid < s)
+    seg = torch.where(ok, slot_tile * s + lid, torch.full_like(lid, nt * s))
+    order = torch.sort(seg, stable=True).indices
+    # a scatter-add count, not bincount: it needs no host synchronisation,
+    # so the plain version can be timed inside a CUDA graph
+    lengths = torch.zeros(nt * s + 1, dtype=torch.long, device=g.device)
+    lengths.scatter_add_(0, seg, torch.ones_like(seg))
+    rows = g.reshape(n * k, f).float()[order]
+    out = torch.segment_reduce(rows, "sum", lengths=lengths, axis=0,
+                               unsafe=True)
+    return out[:nt * s].reshape(nt, s, f).to(g.dtype)
+
+
+def _check(x: torch.Tensor, lidx: torch.Tensor, window: int, tile: int,
+           what: str) -> None:
+    n = x.shape[0]
+    if lidx.dim() != 2 or lidx.shape[0] != n:
+        raise ValueError(f"lidx must be [{n}, K], got {tuple(lidx.shape)}")
     if tile <= 0 or window < 0 or n % tile or window % tile:
         raise ValueError(f"need N % tile == 0 and window % tile == 0 "
                          f"(N={n}, tile={tile}, window={window})")
     if lidx.dtype != torch.int32:
         raise TypeError(f"lidx must be int32, got {lidx.dtype}")
-    if feats.device != lidx.device:
-        raise ValueError(f"feats on {feats.device}, lidx on {lidx.device}")
-    if feats.requires_grad:
-        raise RuntimeError("gather_fwd has no backward: the gather's "
-                           "gradient kernel is not ported yet")
+    if x.device != lidx.device:
+        raise ValueError(f"{what} on {x.device}, lidx on {lidx.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
 
 
-def gather_fwd(feats: torch.Tensor, lidx: torch.Tensor, window: int,
-               tile: int) -> torch.Tensor:
-    """[N, F] features, [N, K] int32 slab-local indices -> [N, K, F].
+def _refuse_grad(x: torch.Tensor, name: str) -> None:
+    if x.requires_grad:
+        raise RuntimeError(f"{name} does not record a backward: use "
+                           "WindowGather.apply (ops.neighbors."
+                           "windowed_gather) for a differentiable gather")
 
-    CUDA tensors run the hand-written kernel; CPU tensors the plain version.
-    ``gather_fwd.launches`` counts kernel launches."""
-    _check(feats, lidx, window, tile)
+
+def _gather(feats: torch.Tensor, lidx: torch.Tensor, window: int,
+            tile: int) -> torch.Tensor:
+    if feats.dim() != 2:
+        raise ValueError(f"feats must be [N, F], got {tuple(feats.shape)}")
+    _check(feats, lidx, window, tile, "feats")
     if feats.device.type == "cpu":
         return gather_fwd_reference(feats, lidx, window, tile)
-    if feats.device.type != "cuda":
-        raise ValueError(f"unsupported device {feats.device}")
     if not (feats.is_contiguous() and lidx.is_contiguous()):
         raise ValueError("gather_fwd needs contiguous feats and lidx")
     n, f = feats.shape
@@ -144,12 +197,11 @@ def gather_fwd(feats: torch.Tensor, lidx: torch.Tensor, window: int,
     out = torch.empty((n, k, f), dtype=feats.dtype, device=feats.device)
     if out.numel() == 0:
         return out
-    lib = _load()
+    lib = _load("window_gather")
     with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream(feats.device).cuda_stream
         err = lib.pcs_window_gather(
             feats.data_ptr(), lidx.data_ptr(), out.data_ptr(), n, k,
-            f * feats.element_size(), tile, window, stream)
+            f * feats.element_size(), tile, window, _stream(feats))
     if err != 0:
         raise RuntimeError(f"window-gather kernel launch failed: CUDA error "
                            f"{err}")
@@ -157,4 +209,98 @@ def gather_fwd(feats: torch.Tensor, lidx: torch.Tensor, window: int,
     return out
 
 
+def _dslab(g: torch.Tensor, lidx: torch.Tensor, window: int,
+           tile: int) -> torch.Tensor:
+    if g.dim() != 3 or lidx.shape[-1:] != g.shape[1:2]:
+        raise ValueError(f"g must be [N, K, F] with lidx [N, K], got "
+                         f"{tuple(g.shape)} and {tuple(lidx.shape)}")
+    _check(g, lidx, window, tile, "g")
+    if g.device.type == "cpu":
+        return dslab_bwd_reference(g, lidx, window, tile)
+    if g.dtype not in _DTYPE_CODES:
+        raise TypeError(f"dslab_bwd takes {sorted(map(str, _DTYPE_CODES))}, "
+                        f"got {g.dtype}")
+    if not (g.is_contiguous() and lidx.is_contiguous()):
+        raise ValueError("dslab_bwd needs contiguous g and lidx")
+    n, k, f = g.shape
+    s = tile + 2 * window
+    out = torch.empty((n // tile, s, f), dtype=g.dtype, device=g.device)
+    if out.numel() == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    lib = _load("window_dslab")
+    with torch.cuda.device(g.device):
+        err = lib.pcs_window_dslab(
+            g.data_ptr(), lidx.data_ptr(), out.data_ptr(), n, k, f, tile,
+            window, _DTYPE_CODES[g.dtype], _stream(g))
+    if err != 0:
+        raise RuntimeError(f"window-dslab kernel launch failed: CUDA error "
+                           f"{err}")
+    dslab_bwd.launches += 1
+    return out
+
+
+def gather_fwd(feats: torch.Tensor, lidx: torch.Tensor, window: int,
+               tile: int) -> torch.Tensor:
+    """K2: [N, F] features, [N, K] int32 slab-local indices -> [N, K, F].
+
+    CUDA tensors run the hand-written kernel; CPU tensors the plain version.
+    ``gather_fwd.launches`` counts kernel launches (those made inside
+    ``WindowGather`` included)."""
+    _refuse_grad(feats, "gather_fwd")
+    return _gather(feats, lidx, window, tile)
+
+
+def dslab_bwd(g: torch.Tensor, lidx: torch.Tensor, window: int,
+              tile: int) -> torch.Tensor:
+    """K3: [N, K, F] slot gradients, [N, K] int32 slab-local indices ->
+    [N/T, S, F] slab gradients (the caller overlap-adds them).
+
+    CUDA tensors run the hand-written kernel; CPU tensors the plain version.
+    ``dslab_bwd.launches`` counts kernel launches (those made inside
+    ``WindowGather`` included)."""
+    _refuse_grad(g, "dslab_bwd")
+    return _dslab(g, lidx, window, tile)
+
+
 gather_fwd.launches = 0
+dslab_bwd.launches = 0
+
+
+def overlap_add(dslab: torch.Tensor, n: int, window: int,
+                tile: int) -> torch.Tensor:
+    """Slab gradients [N/T, S, F] -> point gradients [N, F]: slab chunk j
+    (rows [jT, (j+1)T)) of every tile lands on padded rows shifted by jT,
+    so the adjoint is S/T shifted dense adds in dslab's dtype, j = 0, 1,
+    ..., as ``ops/neighbors.py:_windowed_take_bwd`` adds them; the pad rows
+    are dropped."""
+    nt, s, f = dslab.shape
+    dpad = dslab.new_zeros((n + 2 * window, f))
+    for j in range(s // tile):
+        dpad[j * tile:j * tile + n] += \
+            dslab[:, j * tile:(j + 1) * tile].reshape(n, f)
+    return dpad[window:window + n]
+
+
+class WindowGather(torch.autograd.Function):
+    """Differentiable windowed gather ``(feats [N, F], lidx [N, K], window,
+    tile) -> [N, K, F]``: K2 forward; K3 and the overlap-add backward.  Only
+    ``lidx`` and N are saved for the backward, never the features."""
+
+    @staticmethod
+    def forward(ctx, feats, lidx, window, tile):
+        ctx.save_for_backward(lidx)
+        ctx.n, ctx.window, ctx.tile = feats.shape[0], window, tile
+        return _gather(feats, lidx, window, tile)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        (lidx,) = ctx.saved_tensors
+        # the gradient of a slice of a concatenation is a strided view
+        dslab = _dslab(g.contiguous(), lidx, ctx.window, ctx.tile)
+        return overlap_add(dslab, ctx.n, ctx.window, ctx.tile), None, None, \
+            None

@@ -1,23 +1,27 @@
 """Neighborhood gathers (mirror of ``pointcloudsegmentation_tpu.ops.neighbors``
-for the parts the inference path runs).
+for the parts the flagship's training and inference paths run).
 
-The windowed slots go through the window-gather kernel
-(``kernels/window_gather.py``) on CUDA.  Where the JAX CPU path clips a
-slab index into the block, the kernel reads zero padding; the two agree
-wherever a result is used, because invalid slots self-pad and every valid
-slot names a row inside the block."""
+The windowed slots go through ``WindowGather`` (``kernels/window_gather.py``):
+the window-gather kernel forward and the slab-gradient kernel plus a dense
+overlap-add backward on CUDA.  Where the JAX CPU path clips a slab index
+into the block, the kernel reads zero padding; the two agree wherever a
+result is used, because invalid slots self-pad and every valid slot names a
+row inside the block.  The pooled overflow slots are plain indexing, whose
+backward is PyTorch's sort-based index accumulation."""
 from __future__ import annotations
 
 import torch
 
-from ..kernels.window_gather import gather_fwd
+from ..kernels.window_gather import WindowGather
 from .types import WindowedNeighborhood
 
 
 def windowed_gather(feats: torch.Tensor,
                     wn: WindowedNeighborhood) -> torch.Tensor:
-    """Windowed-slot gather [N, F] -> [N, K, F] (overflow slots excluded)."""
-    return gather_fwd(feats.contiguous(), wn.lidx, wn.window, wn.tile)
+    """Windowed-slot gather [N, F] -> [N, K, F] (overflow slots excluded),
+    differentiable in ``feats``."""
+    return WindowGather.apply(feats.contiguous(), wn.lidx, wn.window,
+                              wn.tile)
 
 
 def pool_take(pvals: torch.Tensor, ppos: torch.Tensor,

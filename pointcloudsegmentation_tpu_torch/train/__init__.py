@@ -1,2 +1,3 @@
-"""Model registry (mirror of ``pointcloudsegmentation_tpu.train.model_zoo``);
-the trainer is not ported yet."""
+"""Model registry, trainer, metrics and checkpoints (mirror of
+``pointcloudsegmentation_tpu.train`` for the flagship's single-card
+training path)."""

@@ -1,0 +1,325 @@
+"""Training loop (mirror of ``pointcloudsegmentation_tpu.train.loop`` on its
+single-card gradient-accumulation path): class-weighted CE with
+ignore-label masking, per-block forward + backward with the gradient
+accumulated in float32, one flat Adam update with a non-finite guard, a
+staircase LR schedule with a floor, streaming IoU.
+
+Every parameter lives in one flat float32 vector in the JAX trainer's
+``ravel_pytree`` order (``convert.ravel_layout``); the model's parameters
+are views into it and their ``.grad``s views into a flat gradient buffer,
+so backward accumulates straight into the flat gradient and Adam runs on
+one vector.  Only per-point segmentation logits [N, C] are handled.
+"""
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass, replace
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import TrainConfig
+from ..convert import ravel_layout, ravel_params
+from ..data.provider import device_prefetch, to_device
+from . import metrics as metrics_lib
+from .model_zoo import build_model
+
+log = logging.getLogger(__name__)
+
+# optax.adam defaults
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+@dataclass(frozen=True)
+class TrainState:
+    """step: optimizer steps taken (bad steps included, as in JAX);
+    params, mu, nu: flat float32 [P] in ravel order; count: the Adam and
+    schedule count (int32 scalar tensor), which a skipped step leaves."""
+
+    step: int
+    params: torch.Tensor
+    mu: torch.Tensor
+    nu: torch.Tensor
+    count: torch.Tensor
+
+    def to(self, device) -> "TrainState":
+        return replace(self, params=self.params.to(device),
+                       mu=self.mu.to(device), nu=self.nu.to(device),
+                       count=self.count.to(device))
+
+
+def make_lr_schedule(cfg: TrainConfig) -> Callable:
+    """Staircase exponential decay with a floor, as optax
+    ``exponential_decay(staircase=True, end_value=lr_clip)``:
+    ``max(lr_init * decay_rate ** floor(step / (decay_epoch *
+    epoch_steps)), lr_clip)`` in float32.  Takes an int or a tensor and
+    returns a float32 tensor on the step's device."""
+    o = cfg.optim
+    steps = o.decay_epoch * o.epoch_steps
+    clip = torch.maximum if o.decay_rate < 1.0 else torch.minimum
+
+    def schedule(step) -> torch.Tensor:
+        c = torch.as_tensor(step).to(torch.float32)
+        init = torch.full_like(c, o.lr_init)
+        if steps <= 0:
+            return init
+        rate = torch.full_like(c, o.decay_rate)
+        v = torch.where(c <= 0, init,
+                        init * torch.pow(rate, torch.floor(c / steps)))
+        return clip(v, torch.full_like(c, o.lr_clip))
+
+    return schedule
+
+
+def seg_loss_terms(logits: torch.Tensor, labels: torch.Tensor,
+                   mask: torch.Tensor,
+                   class_weights: Optional[torch.Tensor],
+                   ignore_label: Optional[int]):
+    """Unnormalised weighted-CE terms: (sum(w·ce), sum(w), labels, valid).
+
+    The weights depend only on labels and mask, never on params, so the
+    batch loss ``Σ_b S_b / Σ_b W_b`` and its gradient ``Σ_b ∇S_b / Σ_b
+    W_b`` accumulate block by block."""
+    logits = logits.float()  # loss always in f32
+    valid = mask
+    if ignore_label is not None:
+        valid = valid & (labels != ignore_label)
+        if ignore_label == 0:
+            labels = (labels - 1).clamp(min=0)
+    c = logits.shape[-1]
+    # labels outside [0, C) are excluded, not clamped toward class C-1; the
+    # clamp below only makes the index safe for already-masked rows
+    valid = valid & (labels >= 0) & (labels < c)
+    labels = labels.clamp(0, c - 1)
+    ce = -torch.log_softmax(logits, dim=-1).gather(
+        -1, labels[..., None].long())[..., 0]
+    w = torch.ones_like(ce) if class_weights is None \
+        else class_weights[labels.long()]
+    w = w * valid.to(ce.dtype)
+    return (w * ce).sum(), w.sum(), labels, valid
+
+
+def seg_loss(logits, labels, mask, class_weights, ignore_label):
+    """Weighted sparse softmax CE over valid (+ non-ignored) points:
+    (loss, effective labels, effective mask)."""
+    s, w, labels, valid = seg_loss_terms(logits, labels, mask,
+                                         class_weights, ignore_label)
+    return s / w.clamp(min=1e-6), labels, valid
+
+
+def adam_update(state: TrainState, grads: torch.Tensor, loss: torch.Tensor,
+                schedule: Callable) -> Tuple[TrainState, torch.Tensor]:
+    """optax ``adam(schedule)`` on the flat vector, plus the guard: a step
+    whose loss or gradient is non-finite changes no param and leaves the
+    moments and the count as they were (``step`` still advances).  Returns
+    (new state, good)."""
+    good = torch.isfinite(loss) & torch.isfinite(grads).all()
+    mu = (1 - B1) * grads + B1 * state.mu
+    nu = (1 - B2) * (grads * grads) + B2 * state.nu
+    count = state.count + 1
+    c = count.to(torch.float32)
+    mu_hat = mu / (1 - torch.pow(torch.full_like(c, B1), c))
+    nu_hat = nu / (1 - torch.pow(torch.full_like(c, B2), c))
+    upd = -schedule(state.count) * (mu_hat / (torch.sqrt(nu_hat) + EPS))
+    upd = torch.where(good, upd, torch.zeros_like(upd))
+    return TrainState(step=state.step + 1, params=state.params + upd,
+                      mu=torch.where(good, mu, state.mu),
+                      nu=torch.where(good, nu, state.nu),
+                      count=torch.where(good, count, state.count)), good
+
+
+def _bind_flat(model: nn.Module, layout, flat: torch.Tensor,
+               grad: torch.Tensor) -> None:
+    """Make every parameter of ``model`` a view into ``flat`` and its
+    ``.grad`` the matching view into ``grad``: backward then accumulates in
+    place into the flat gradient."""
+    for leaf in layout:
+        *mods, name = leaf.key.split(".")
+        module = model.get_submodule(".".join(mods))
+        p = nn.Parameter(leaf.view(flat))
+        p.grad = leaf.view(grad)
+        setattr(module, name, p)
+
+
+class Trainer:
+    """Owns the model, the flat parameter and gradient buffers and the
+    class weights; ``train_step``/``eval_step`` map (state, batch) to
+    (state, metrics) like the JAX trainer.  A state's tensors are never
+    written in place, so an old state stays valid after a step."""
+
+    def __init__(self, cfg: TrainConfig, device="cpu",
+                 search_chunk: int = 1024, **encoder_kw):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.model = build_model(cfg, None, self.device,
+                                 search_chunk=search_chunk, **encoder_kw)
+        self.layout = ravel_layout(self.model)
+        p = self.layout[-1].offset + self.layout[-1].size
+        self._flat = torch.zeros(p, dtype=torch.float32, device=self.device)
+        self._grad = torch.zeros_like(self._flat)
+        _bind_flat(self.model, self.layout, self._flat, self._grad)
+        self._encoder_kw = dict(search_chunk=search_chunk, **encoder_kw)
+        d = cfg.data
+        self.class_weights = None if d.class_weights is None else \
+            torch.tensor(d.class_weights, dtype=torch.float32,
+                         device=self.device)
+        self.lr_schedule = make_lr_schedule(cfg)
+
+    @property
+    def num_params(self) -> int:
+        return self._flat.numel()
+
+    # -- init ------------------------------------------------------------
+    def init_state(self, generator: Optional[torch.Generator] = None,
+                   state: Optional[TrainState] = None) -> TrainState:
+        """A fresh state with Glorot weights drawn from ``generator`` (on
+        the CPU, as ``build_model`` draws them) and zero moments, or
+        ``state`` (e.g. from ``convert.flax_train_state_to_torch``) moved
+        to the trainer's device after a size check."""
+        if state is None:
+            if generator is None:
+                raise ValueError("init_state needs a generator or a state")
+            cpu = build_model(self.cfg, generator, "cpu", **self._encoder_kw)
+            flat = ravel_params(cpu, self.layout).to(self.device)
+            state = TrainState(step=0, params=flat,
+                               mu=torch.zeros_like(flat),
+                               nu=torch.zeros_like(flat),
+                               count=torch.zeros((), dtype=torch.int32,
+                                                 device=self.device))
+        if state.params.shape != self._flat.shape:
+            raise ValueError(f"state has {tuple(state.params.shape)} "
+                             f"params, the model {self.num_params}")
+        return state.to(self.device)
+
+    # -- steps -----------------------------------------------------------
+    def _dropout_generator(self, step: int) -> torch.Generator:
+        """Each step's dropout stream, seeded from (cfg.seed, step) so that
+        a step repeats."""
+        seed = np.random.SeedSequence([self.cfg.seed, step]).generate_state(
+            1, np.uint64)[0]
+        return torch.Generator(self.device).manual_seed(
+            int(seed) & 0x7FFFFFFFFFFFFFFF)
+
+    def _block_metrics(self, logits, labels_eff, valid):
+        preds = logits.argmax(-1)
+        cm = metrics_lib.confusion_matrix(labels_eff, preds,
+                                          self.cfg.data.num_classes,
+                                          mask=valid)
+        return cm, ((preds == labels_eff) & valid).sum(), valid.sum()
+
+    def _accum(self, state: TrainState, batch: Dict, train: bool,
+               grad: bool):
+        """Per-block forward (+ backward into the flat gradient), block
+        after block, each block's graph freed before the next starts.
+        Returns (s, w, cm, correct, count) summed over the blocks."""
+        d = self.cfg.data
+        batch = to_device(batch, self.device)
+        self._flat.copy_(state.params)
+        self._grad.zero_()
+        gen = self._dropout_generator(state.step) if train else None
+        c = d.num_classes
+        s_acc = torch.zeros((), dtype=torch.float32, device=self.device)
+        w_acc = torch.zeros_like(s_acc)
+        cm = torch.zeros((c, c), dtype=torch.int64, device=self.device)
+        correct = torch.zeros((), dtype=torch.int64, device=self.device)
+        count = torch.zeros_like(correct)
+        with torch.set_grad_enabled(grad):
+            for b in range(batch["xyz"].shape[0]):
+                logits = self.model(batch["xyz"][b], batch["feats"][b],
+                                    batch["mask"][b], train=train,
+                                    generator=gen)
+                s, w, labels_eff, valid = seg_loss_terms(
+                    logits, batch["labels"][b], batch["mask"][b],
+                    self.class_weights, d.ignore_label)
+                if grad:
+                    s.backward()
+                s_acc += s.detach()
+                w_acc += w
+                bcm, bcorrect, bcount = self._block_metrics(
+                    logits.detach(), labels_eff, valid)
+                cm += bcm
+                correct += bcorrect
+                count += bcount
+                del logits, s
+        return s_acc, w_acc, cm, correct, count
+
+    def loss_and_grad(self, state: TrainState, batch: Dict,
+                      train: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(batch loss, flat gradient ``Σ∇S_b / max(ΣW_b, 1e-6)``) at
+        ``state.params``, without an update."""
+        s, w, *_ = self._accum(state, batch, train, grad=True)
+        denom = w.clamp(min=1e-6)
+        return s / denom, self._grad / denom
+
+    def _metrics(self, loss, cm, correct, count, good):
+        return {"loss": loss, "correct": correct, "count": count, "cm": cm,
+                "skipped": (~good).to(torch.int32)}
+
+    def train_step(self, state: TrainState, batch: Dict
+                   ) -> Tuple[TrainState, Dict]:
+        """One optimizer step over the batch's blocks (batch arrays are
+        [B, N, ...]).  Metrics are device tensors; nothing synchronises."""
+        s, w, cm, correct, count = self._accum(state, batch, True, True)
+        denom = w.clamp(min=1e-6)
+        loss = s / denom
+        state, good = adam_update(state, self._grad / denom, loss,
+                                  self.lr_schedule)
+        return state, self._metrics(loss, cm, correct, count, good)
+
+    def eval_step(self, state: TrainState, batch: Dict
+                  ) -> Tuple[TrainState, Dict]:
+        """Loss and metrics with ``train=False``; the state is unchanged."""
+        s, w, cm, correct, count = self._accum(state, batch, False, False)
+        good = torch.ones((), dtype=torch.bool, device=self.device)
+        return state, self._metrics(s / w.clamp(min=1e-6), cm, correct,
+                                    count, good)
+
+    # -- epochs ----------------------------------------------------------
+    def run_epoch(self, state: TrainState, batches: Iterable[Dict],
+                  train: bool = True) -> Tuple[TrainState, Dict]:
+        """One pass over ``batches`` with metrics accumulated on the device
+        and read back once at the end (and at log lines, every
+        ``cfg.log_every`` steps); ``points_per_sec`` counts valid points,
+        ``blocks_per_sec`` blocks, both counted on the host before
+        transfer."""
+        acc = metrics_lib.MetricAccumulator(self.cfg.data.num_classes)
+        t0 = time.time()
+        points = blocks = 0
+        log_every = self.cfg.log_every
+        sizes = []
+
+        def counted(bs):
+            for b in bs:
+                sizes.append((int(np.asarray(b["mask"]).sum()),
+                              b["xyz"].shape[0]))
+                yield b
+
+        step_fn = self.train_step if train else self.eval_step
+        cm_dev = loss_dev = None
+        nsteps = 0
+        for i, batch in enumerate(device_prefetch(counted(iter(batches)),
+                                                  self.device)):
+            state, m = step_fn(state, batch)
+            cm_dev = m["cm"] if cm_dev is None else cm_dev + m["cm"]
+            loss_dev = m["loss"] if loss_dev is None \
+                else loss_dev + m["loss"]
+            nsteps += 1
+            points += sizes[i][0]
+            blocks += sizes[i][1]
+            if train and i % log_every == 0:
+                dt = time.time() - t0
+                log.info("step %d loss %.5f | %.1f blocks/s %.0f points/s",
+                         i, float(m["loss"]), blocks / dt, points / dt)
+        if nsteps:
+            acc.update(cm_dev)
+            acc.loss_sum = float(loss_dev)
+            acc.loss_n = nsteps
+        res = acc.result()
+        dt = max(time.time() - t0, 1e-9)
+        res["points_per_sec"] = points / dt
+        res["blocks_per_sec"] = blocks / dt
+        return state, res

@@ -78,7 +78,13 @@ def test_port_imports_no_jax():
             "import pointcloudsegmentation_tpu_torch.convert\n"
             "import pointcloudsegmentation_tpu_torch.eval.interpolate\n"
             "import pointcloudsegmentation_tpu_torch.train.model_zoo\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "import pointcloudsegmentation_tpu_torch.train.loop\n"
+            "import pointcloudsegmentation_tpu_torch.train.checkpoint\n"
+            "import pointcloudsegmentation_tpu_torch.train.metrics\n"
+            "import pointcloudsegmentation_tpu_torch.data.provider\n"
+            "import pointcloudsegmentation_tpu_torch.kernels.window_gather\n"
+            "import pointcloudsegmentation_tpu_torch.profile_train\n"
+            "bad =[m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax')]\n"
             "print('JAXFREE' if not bad else bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -56,8 +56,19 @@ def test_gather_fwd_rejects_bad_input():
         wg.gather_fwd(f, li, W + 1, T)                 # W % T != 0
     with pytest.raises(TypeError):
         wg.gather_fwd(f, li.long(), W, T)
+    # the raw entry point records no backward and refuses a tensor that
+    # requires grad; the differentiable gather carries the gradient
+    fg = f.clone().requires_grad_()
     with pytest.raises(RuntimeError):
-        wg.gather_fwd(f.requires_grad_(), li, W, T)    # no backward ported
+        wg.gather_fwd(fg, li, W, T)
+    own = (torch.arange(N, dtype=torch.int32) % T + W)[:, None]
+    wn = TWindowed(lidx=own.repeat(1, 4), wmask=torch.ones(N, 4, dtype=bool),
+                   ov_idx=torch.zeros(N, 0, dtype=torch.int32),
+                   ov_mask=torch.zeros(N, 0, dtype=bool), window=W, tile=T)
+    out = tnb.windowed_gather(fg, wn)
+    assert out.requires_grad
+    out.sum().backward()
+    assert torch.equal(fg.grad, torch.full_like(f, 4.0))   # 4 slots each
 
 
 @pytest.fixture(scope="module")
