@@ -6,12 +6,14 @@
 Run from the root of a checkout.  Phases, each of which fails loudly:
 
 1. device: the card's name and power limit; TF32 is switched off;
-2. build: the window-gather kernel (nvcc, sm_90a) and the native host
-   library (csrc/) are built from the checkout's sources;
+2. build: the three CUDA kernels (one nvcc each for sm_90a, in parallel)
+   and the native host library (g++, ``csrc/pointutil.cpp``) are built from
+   the checkout's sources into the port's gitignored ``_build/``;
 3. kernel vs plain: the window-gather kernel against its plain PyTorch
    version at every shape the flagship's inference path gives it, bit for
    bit, timed with CUDA events both eagerly (host dispatch included) and as
-   CUDA-graph replays (device time);
+   CUDA-graph replays (device time), beside its bound and one PyTorch call
+   for the same gather (``index_select``);
 4. serve: the flagship ``pointnet_s3dis`` (bf16 compute, weights drawn from
    torch.Generator seed 0) sweeps 8 blocks of 8192 points through
    ``eval_scene_probs`` and interpolates to a 4x-dense cloud; the kernel's
@@ -22,22 +24,32 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
 6. slab-gradient kernel vs plain: the window gather's backward kernel
    against its plain PyTorch version at every conv shape of the flagship,
    bf16 and one float32 case: two runs bitwise equal, float32 within 1e-6
-   relative, bf16 within one bf16 ulp, timed like phase 3;
+   relative, bf16 within one bf16 ulp, timed like phase 3, beside its bound
+   and ``index_add_`` (atomic, so timed only);
 7. train: the flagship at full width (bf16 compute, weights from
    torch.Generator seed 0, S3DIS class weights) takes training steps on 4
    blocks of 8192 points: the backward kernels' determinism one op at a
    time, launch counts per block of both kernels, a finite loss at every
    step, a falling loss over 20 steps on one batch, a bitwise-repeatable
    step, the non-finite guard, float32 gradient parity card vs CPU (cosine),
-   and train points/s with peak memory.
+   and train points/s with peak memory;
+8. fused conv: the fused-conv bench (``bench_fused_conv``) at levels 0 and
+   1 at full width: its timed arms and its fused-vs-unfused cross-check
+   (within 2^-6 of the largest output), exactly one fused window-conv
+   launch per fused call, and the kernel against its plain version in bf16
+   at both levels, in float32 at level 0, and in bf16 at level 0 with a
+   window of 96 rows, no multiple of the tile (two runs bitwise equal,
+   float32 within 1e-5 of each output's sum of magnitudes, bf16 within 2
+   bf16 ulps of the largest activation), timed beside its bound.
 
-Prints one JSON line describing the kernels, then the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits
+Prints one JSON line describing the kernels (launches on their phase's
+path, error, kernel, plain, bound and one-call library milliseconds), then
+the card's name and power limit, and as the last line ``{"ok": true,
+"device": {...}}``.  Exits
 non-zero without that line when there is no CUDA device or a phase fails.
 """
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -51,6 +63,13 @@ PARITY_ARGMAX_MIN = 0.99    # share of points with equal logit argmax
 PROB_SUM_TOL = 1e-3
 DSLAB_F32_RTOL = 1e-6       # slab-gradient kernel vs plain, float32
 GRAD_COSINE_MIN = 0.999     # flat gradient, float32 card vs CPU
+K1_F32_RTOL = 1e-5          # fused conv vs plain, of the sum of magnitudes
+K1_BF16_ULPS = 2            # fused conv vs plain, of the largest activation
+FUSED_VS_UNFUSED_REL = 2.0 ** -6   # bench cross-check, of the largest output
+ARM_ITERS = 20              # timed calls of each bench arm
+# the card's peaks (H100 SXM data sheet, dense) and memory rate
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def check(cond, msg):
@@ -62,57 +81,25 @@ def log(msg=""):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Mean milliseconds per call of ``fn`` on the current stream."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def graph_ms(fn, calls=20, replays=5):
-    """Mean device milliseconds per call of ``fn``: ``calls`` calls captured
-    in one CUDA graph, replayed ``replays`` times between CUDA events, so
-    the host's dispatch cost is not in the time."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (calls * replays)
+def bound_ms(n_bytes, flops, dtype):
+    """The least time the card could take: bytes at the HBM rate or
+    operations at the peak for ``dtype``, whichever is larger."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
+        "operations"
 
 
 def phase_device():
     import torch
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0].strip()
+    from pointcloudsegmentation_tpu_torch.utils.timing import card as card_name
+
+    card = card_name()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -124,22 +111,21 @@ def phase_device():
 
 
 def phase_build():
-    from pointcloudsegmentation_tpu_torch.kernels import window_gather as wg
+    from pointcloudsegmentation_tpu_torch.data import native
+    from pointcloudsegmentation_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    for name, built in wg.build_all(force=True).items():
+    for name, built in _build.build_all(force=True).items():
         log(f"[build] {name}.cu -> sm_90a in {built.seconds:.2f} s; ptxas:")
         for line in built.log.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line and ("Used" in line or "spill" in line
+                                    or "stack" in line):
                 log(f"    {line.strip()}")
-    log(f"[build] both kernels (one nvcc each, in parallel) in "
-        f"{time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    mk = subprocess.run(["make", "-C", os.path.join(ROOT, "csrc"), "-B"],
-                        capture_output=True, text=True, timeout=300)
-    check(mk.returncode == 0, f"native build failed:\n{mk.stdout}{mk.stderr}")
-    log(f"[build] native host library (make -C csrc -B) in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"[build] {len(_build.SOURCES)} kernels (one nvcc each, in "
+        f"parallel) in {time.perf_counter() - t0:.2f} s")
+    built = native.build(force=True)
+    log(f"[build] native host library (g++ {os.path.relpath(native.SOURCE, ROOT)}"
+        f" -> {os.path.relpath(built.path, ROOT)}) in {built.seconds:.2f} s")
 
 
 def gather_shapes(model, cfg):
@@ -173,6 +159,7 @@ def phase_kernel(model, cfg, card):
     import torch
 
     from pointcloudsegmentation_tpu_torch.kernels import window_gather as wg
+    from pointcloudsegmentation_tpu_torch.utils.timing import cuda_ms, graph_ms
 
     tile, window = model.encoder.win_tile, model.encoder.win_window
     s = tile + 2 * window
@@ -196,14 +183,24 @@ def phase_kernel(model, cfg, card):
         kernel = lambda: wg.gather_fwd(feats, lidx, window, tile)  # noqa
         plain = lambda: wg.gather_fwd_reference(  # noqa: E731
             feats, lidx, window, tile)
+        # one PyTorch call for the same gather: pad and row ids built outside
+        fp_pad = torch.nn.functional.pad(feats, (0, 0, window, window))
+        rowid = ((torch.arange(n, device="cuda") // tile * tile)[:, None]
+                 + lidx).reshape(-1)
+        library = lambda: fp_pad.index_select(0, rowid)  # noqa: E731
         eager_ms, eager_plain_ms = cuda_ms(kernel), cuda_ms(plain)
         ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+        library_ms = graph_ms(library)
+        bound, bound_by = bound_ms(nbytes(feats, lidx, got), 0, dtype)
         mb = n * k * f * feats.element_size() / 1e6
         rows.append(dict(name=name, n=n, k=k, f=f, dtype=str(dtype),
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=bound_by,
+                         library_ms=library_ms))
         log(f"[kernel] {name:16s} N={n:5d} K={k:2d} F={f:3d} "
             f"{str(dtype):14s} equal; device ms (graph replay): kernel "
-            f"{ms:.4f} ({mb / ms:.1f} GB/s written), plain {plain_ms:.4f}; "
+            f"{ms:.4f} ({mb / ms:.1f} GB/s written), plain {plain_ms:.4f}, "
+            f"index_select {library_ms:.4f}, bound {bound:.4f} ({bound_by}); "
             f"eager ms: kernel {eager_ms:.4f}, plain {eager_plain_ms:.4f} "
             f"[{card}]")
     return rows
@@ -213,7 +210,7 @@ def make_blocks(device):
     import numpy as np
     import torch
 
-    from pointcloudsegmentation_tpu.data import toy
+    from pointcloudsegmentation_tpu_torch.data import toy
 
     rng = np.random.RandomState(0)
     blocks = []
@@ -357,6 +354,7 @@ def phase_dslab(model, cfg, card):
     import torch
 
     from pointcloudsegmentation_tpu_torch.kernels import window_gather as wg
+    from pointcloudsegmentation_tpu_torch.utils.timing import cuda_ms, graph_ms
 
     tile, window = model.encoder.win_tile, model.encoder.win_window
     s = tile + 2 * window
@@ -397,16 +395,32 @@ def phase_dslab(model, cfg, card):
         kernel = lambda: wg.dslab_bwd(g, lidx, window, tile)  # noqa: E731
         plain = lambda: wg.dslab_bwd_reference(  # noqa: E731
             g, lidx, window, tile)
+        # one PyTorch call for the same sums (atomic, not repeatable: timed
+        # only); segment ids built outside
+        lid = lidx.reshape(-1).long()
+        seg = torch.where(
+            (lid >= 0) & (lid < s),
+            torch.arange(n * k, device="cuda") // (tile * k) * s + lid,
+            torch.full_like(lid, n // tile * s))
+        library = lambda: torch.zeros(  # noqa: E731
+            n // tile * s + 1, f, dtype=torch.float32,
+            device="cuda").index_add_(0, seg, g.view(-1, f).float())
         eager_ms, eager_plain_ms = cuda_ms(kernel), cuda_ms(plain)
         ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+        library_ms = graph_ms(library)
+        # the sums: one add per element of g
+        bound, bound_by = bound_ms(nbytes(g, lidx, got), g.numel(), dtype)
         mb = (g.numel() + want.numel()) * g.element_size() / 1e6
         rows.append(dict(name=name, n=n, k=k, f=f, dtype=str(dtype),
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=bound_by,
+                         library_ms=library_ms))
         log(f"[dslab] {name:8s} N={n:5d} K={k:2d} F={f:3d} {str(dtype):14s} "
             f"repeatable; {n_diff} of {d.numel()} elements differ from plain "
             f"(max {err:.3e}, {what}); device ms (graph replay): kernel "
             f"{ms:.4f} ({mb / ms:.1f} GB/s read+written), plain "
-            f"{plain_ms:.4f}; eager ms: kernel {eager_ms:.4f}, plain "
+            f"{plain_ms:.4f}, index_add_ {library_ms:.4f}, bound {bound:.4f} "
+            f"({bound_by}); eager ms: kernel {eager_ms:.4f}, plain "
             f"{eager_plain_ms:.4f} [{card}]")
     return rows
 
@@ -462,12 +476,12 @@ def backward_determinism(card):
 def make_train_batches(device):
     """bench.py's training input: 2 batches of 4 synthetic S3DIS-shaped
     blocks of 8192 points (toy.toy_batches, seed 0)."""
-    from pointcloudsegmentation_tpu.data import toy
+    from pointcloudsegmentation_tpu_torch.data import toy
     from pointcloudsegmentation_tpu_torch.data.provider import to_device
 
     return [to_device(b, device) for b in toy.toy_batches(
-        2, batch_size=TRAIN_BLOCKS, num_points=N_POINTS, kind="room",
-        num_classes=13, feat_dim=12)]
+        2, batch_size=TRAIN_BLOCKS, num_points=N_POINTS, num_classes=13,
+        feat_dim=12)]
 
 
 def phase_train(cfg, card):
@@ -583,6 +597,132 @@ def phase_train(cfg, card):
     return launches, pps, peak
 
 
+def k1_flops(lidx, dims):
+    """Operations K1's output needs on this data: for every valid slot, the
+    multiply-adds of ``sx @ wsx`` and of each layer's hidden kernel (2 each)
+    plus the adds that form ``base`` and add the hidden products."""
+    offs = [0]
+    for d in dims:
+        offs.append(offs[-1] + d)
+    per_slot = 2 * (3 * offs[-1] + sum(offs[i] * dims[i]
+                                       for i in range(1, len(dims))))
+    per_slot += 2 * offs[-1] + sum(dims[1:])
+    return int((lidx >= 0).sum()) * per_slot
+
+
+def k1_check(fc, args, card, what):
+    """K1 against its plain version on the bench's inputs ``args``: two
+    runs bitwise equal, the same points without a valid slot, and within
+    the stated bound; then both timed beside the bound."""
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.utils.timing import graph_ms
+
+    fpx, cen, xyzc, lidx, wsx, whids, window, tile, dims = args
+    dtype = fpx.dtype
+    before = fc.fused_window_conv_fwd.launches
+    got = fc.fused_window_conv_fwd(*args)
+    again = fc.fused_window_conv_fwd(*args)
+    want = fc.fused_window_conv_reference(*args)
+    slots = fc.window_conv_slots(*args)
+    torch.cuda.synchronize()
+    check(fc.fused_window_conv_fwd.launches == before + 2,
+          f"{what}: the fused conv launched "
+          f"{fc.fused_window_conv_fwd.launches - before} times in 2 calls")
+    check(torch.equal(got, again), f"{what}: fused conv not repeatable")
+    none = want.float() <= -1e29
+    check(torch.equal(got.float() <= -1e29, none),
+          f"{what}: points without a valid slot differ")
+    d = (got.float() - want.float()).abs()
+    valid = (lidx >= 0)[..., None]
+    if dtype == torch.float32:
+        # every input replaced by its magnitude and xyz_i negated, so each
+        # sum and difference adds magnitudes and relu passes them through
+        mags = fc.window_conv_slots(
+            fpx.abs(), cen.abs(), -xyzc.abs(), lidx, wsx.abs(),
+            tuple(w.abs() for w in whids), window, tile, dims)
+        scale = torch.where(valid, mags, torch.zeros_like(mags)).amax(1)
+        bound = K1_F32_RTOL * scale
+        stated = f"<= {K1_F32_RTOL:g} of each output's sum of magnitudes"
+    else:
+        top = slots.abs()[valid.expand_as(slots)].max()
+        bound = K1_BF16_ULPS * bf16_ulp(top)
+        stated = (f"<= {K1_BF16_ULPS} bf16 ulps of the largest activation "
+                  f"{top.item():.4f}")
+    over = int((d > bound).sum())
+    check(over == 0, f"{what}: {over} elements beyond {stated}")
+    err = d.max().item()
+    ms = graph_ms(lambda: fc.fused_window_conv_fwd(*args))
+    plain_ms = graph_ms(lambda: fc.fused_window_conv_reference(*args))
+    n_bytes = nbytes(fpx, cen, xyzc, lidx, wsx, *whids, got)
+    flops = k1_flops(lidx, dims)
+    bound_t, bound_by = bound_ms(n_bytes, flops, dtype)
+    log(f"[fused] {what} {str(dtype):14s} repeatable; "
+        f"{int((d > 0).sum())} of {d.numel()} elements differ from plain "
+        f"(max {err:.3e}, {stated}); device ms (graph replay): kernel "
+        f"{ms:.4f}, plain {plain_ms:.4f}, bound {bound_t:.4f} ({bound_by}: "
+        f"{n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP over "
+        f"{int((lidx >= 0).sum())} valid slots; "
+        f"{flops / ms / 1e9:.2f} TFLOP/s) [{card}]")
+    return dict(name=what, dtype=str(dtype), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_t, bound_by=bound_by)
+
+
+def rewindow(args, window):
+    """K1's arguments ``args`` with the stream re-padded to ``window`` rows
+    (no multiple of the tile) and each slab-local index moved with it: the
+    same neighbours where they stay in the slab, a masked slot below it and
+    a zero row above it."""
+    import torch.nn.functional as F
+
+    fpx, cen, xyzc, lidx, wsx, whids, w0, tile, dims = args
+    fpx = F.pad(fpx[w0:fpx.shape[0] - w0], (0, 0, window, window))
+    lidx = lidx.where(lidx < 0, lidx - w0 + window)
+    return fpx, cen, xyzc, lidx, wsx, whids, window, tile, dims
+
+
+def phase_fused_conv(card):
+    """The fused-conv bench at levels 0 and 1 (full width), then K1 against
+    its plain version on each level's inputs."""
+    import torch
+
+    from pointcloudsegmentation_tpu_torch import bench_fused_conv as bench
+    from pointcloudsegmentation_tpu_torch.kernels import fused_conv as fc
+
+    rows, launches = [], 0
+    for level in (0, 1):
+        b = bench.setup(level, "cuda")
+        n, k = b.wn.lidx.shape
+        what = f"L{level} N={n} K={k} dims={bench.LEVELS[level]['dims']}"
+        # the bench path: its timed arms and its cross-check
+        fc.fused_window_conv_fwd.launches = 0
+        arms = bench.time_arms(b, ARM_ITERS)
+        err, scale = bench.cross_check(b)
+        torch.cuda.synchronize()
+        got = fc.fused_window_conv_fwd.launches
+        calls = 3 + ARM_ITERS + 1       # warm-up, timed, cross-check
+        launches += got
+        log(f"[fused] bench {what}: " + ", ".join(
+            f"{arm} {ms:.4f} ms" for arm, ms in arms.items())
+            + f" (CUDA events, {ARM_ITERS} eager calls) [{card}]")
+        log(f"[fused] bench {what}: fused window-conv launches {got} in "
+            f"{calls} fused calls; fused vs unfused (windowed slots, bf16) "
+            f"max abs diff {err:.4f}, bound {FUSED_VS_UNFUSED_REL * scale:.4f}"
+            f" (2^-6 of the largest |output| {scale:.4f})")
+        check(got == calls, f"{got} fused window-conv launches in {calls} "
+              f"fused calls")
+        check(err <= FUSED_VS_UNFUSED_REL * scale,
+              f"fused vs unfused {err} at {what}")
+        with torch.no_grad():
+            rows.append(k1_check(fc, bench.fused_arm(b)(), card, what))
+            if level == 0:
+                rows.append(k1_check(fc, bench.fused_arm(
+                    b, torch.float32)(), card, what))
+                rows.append(k1_check(fc, rewindow(bench.fused_arm(b)(), 96),
+                                     card, f"{what} W=96"))
+    return rows, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -616,17 +756,21 @@ def main() -> int:
     phase_parity(model, cfg, (b0["xyz"], b0["feats"], b0["mask"]), card)
     drows = phase_dslab(model, cfg, card)
     train_launches, train_pps, peak = phase_train(cfg, card)
+    frows, fused_launches = phase_fused_conv(card)
 
     main_row = next(r for r in rows if r["name"].endswith("conv"))
-    dmain = drows[0]
+    dmain, fmain = drows[0], frows[0]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; "
-        f"kernel ms/plain_ms below are {main_row['name']} N={main_row['n']} "
-        f"K={main_row['k']} F={main_row['f']} {main_row['dtype']} (gather) "
-        f"and {dmain['name']} N={dmain['n']} K={dmain['k']} F={dmain['f']} "
-        f"{dmain['dtype']} (slab gradient); launches are the serve sweep's "
-        f"plus one training step's; eval {pps:.1f} dense points/s, train "
-        f"{train_pps:.1f} points/s, peak {peak:.3f} GiB")
-    print(json.dumps({"kernels": [{
+        f"kernel times below are {main_row['name']} N={main_row['n']} "
+        f"K={main_row['k']} F={main_row['f']} {main_row['dtype']} (gather), "
+        f"{dmain['name']} N={dmain['n']} K={dmain['k']} F={dmain['f']} "
+        f"{dmain['dtype']} (slab gradient) and {fmain['name']} "
+        f"{fmain['dtype']} (fused conv); launches are the serve sweep's plus "
+        f"one training step's, and the fused-conv bench's; eval {pps:.1f} "
+        f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "
+        f"GiB")
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by")
+    print(json.dumps({"kernels": [dict({
         "name": "window_gather",
         "route": "cuda",
         "source": "pointcloudsegmentation_tpu_torch/csrc/window_gather.cu",
@@ -634,9 +778,8 @@ def main() -> int:
             "pointcloudsegmentation_tpu/ops/pallas/window_gather.py:95",
         "launches": launches + train_launches["window_gather"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-    }, {
+        "library_ms": main_row["library_ms"],
+    }, **{key: main_row[key] for key in timing}), dict({
         "name": "window_dslab",
         "route": "cuda",
         "source": "pointcloudsegmentation_tpu_torch/csrc/window_dslab.cu",
@@ -644,9 +787,16 @@ def main() -> int:
             "pointcloudsegmentation_tpu/ops/pallas/window_gather.py:125",
         "launches": train_launches["window_dslab"],
         "max_abs_err": max(r["max_abs_err"] for r in drows),
-        "ms": dmain["ms"],
-        "plain_ms": dmain["plain_ms"],
-    }]}))
+        "library_ms": dmain["library_ms"],
+    }, **{key: dmain[key] for key in timing}), dict({
+        "name": "fused_window_conv",
+        "route": "cuda",
+        "source": "pointcloudsegmentation_tpu_torch/csrc/fused_window_conv.cu",
+        "replaces": "pointcloudsegmentation_tpu/ops/pallas/fused_conv.py:106",
+        "launches": fused_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in frows),
+        "library_ms": None,
+    }, **{key: fmain[key] for key in timing})]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,21 +6,25 @@ is held against it by the ``tests/test_torch_*.py`` parity tests.
 
 Rules the port keeps:
 
-- it imports ``torch`` and never JAX; from the JAX package it imports only
-  the numpy-only host code (``pointcloudsegmentation_tpu.data.toy``,
-  ``data.batching``, ``data.native``);
-- devices are explicit, randomness comes from explicit ``torch.Generator``s,
-  and the compute dtype is a constructor argument;
+- it imports ``torch`` and never JAX, and nothing of the JAX package, not
+  even its numpy-only modules: the host code it needs is its own copy
+  (``data/toy.py``, ``data/batching.py``, and ``data/native.py``, which
+  builds the repository's ``csrc/pointutil.cpp`` into ``_build/``);
+- entry points run on the card (``device="cuda"``) unless the caller asks
+  for the CPU; randomness comes from explicit ``torch.Generator``s, and the
+  compute dtype is a constructor argument;
 - it reads no environment variables: the JAX package's ``PCS_*`` knobs are
   fixed at their default values;
-- the windowed gather and its backward run as hand-written CUDA kernels on
-  CUDA tensors (``kernels/window_gather.py``) and as their plain PyTorch
-  versions on CPU tensors.
+- every TPU kernel runs as a hand-written CUDA kernel on CUDA tensors
+  (``kernels/window_gather.py``, ``kernels/fused_conv.py``) and as its
+  plain PyTorch version on CPU tensors.
 
 Ported so far: the flagship ``pointnet_s3dis`` inference path (block sweep,
-softmax, dense interpolation) and its training step (``train/loop.py``;
+softmax, dense interpolation), its training step (``train/loop.py``;
 ``python -m pointcloudsegmentation_tpu_torch.profile_train`` profiles it on
-the card).  See ROADMAP.md for what is still to port.
+the card), and the fused window-conv kernel with its microbench
+(``python -m pointcloudsegmentation_tpu_torch.bench_fused_conv --level 0``).
+See ROADMAP.md for what is still to port.
 """
 
 __version__ = "0.1.0"

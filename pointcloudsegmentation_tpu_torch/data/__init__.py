@@ -1,2 +1,3 @@
-"""Input pipeline pieces of the port (host data itself comes from the JAX
-package's numpy-only ``data`` modules)."""
+"""Input pipeline of the port: its own numpy copies of the JAX package's
+synthetic room blocks and batching (``toy``, ``batching``), the native host
+library's binding (``native``) and the device transfer (``provider``)."""

@@ -1,0 +1,50 @@
+"""Synthetic S3DIS-like room blocks for tests and benchmarks (the port's
+own copy of ``pointcloudsegmentation_tpu.data.toy``, numpy only, cut to the
+room blocks the port calls: no two-class toy clouds, no ``dense_batches``).
+The same seed gives the same arrays as the JAX package's generators with
+``kind="room"``."""
+from __future__ import annotations
+
+from typing import Dict, Iterator
+
+import numpy as np
+
+from .batching import pad_block, stack_blocks
+
+
+def synthetic_room_block(rng: np.random.RandomState, n: int = 8192,
+                         num_classes: int = 13, feat_dim: int = 12,
+                         block: float = 3.0) -> Dict:
+    """S3DIS-shaped random block: surface-structured points whose labels
+    correlate with geometry+features, for throughput benchmarking and
+    training smoke tests."""
+    n_floor, n_wall = n // 3, n // 3
+    n_rest = n - n_floor - n_wall
+    floor = rng.uniform(-block / 2, block / 2, (n_floor, 3))
+    floor[:, 2] = 0.02 * rng.randn(n_floor)
+    wall = rng.uniform(-block / 2, block / 2, (n_wall, 3))
+    wall[:, 0] = block / 2 - 0.05 + 0.02 * rng.randn(n_wall)
+    rest = rng.uniform(-block / 2, block / 2, (n_rest, 3))
+    xyz = np.concatenate([floor, wall, rest], 0).astype(np.float32)
+    feats = rng.rand(n, feat_dim).astype(np.float32) * 2 - 1
+    region = (np.floor((xyz[:, 0] + block / 2)) * 3
+              + np.floor(xyz[:, 2] + 1.0)).astype(np.int32)
+    feat_bit = (feats[:, 0] > 0) if feat_dim > 0 else 0
+    labels = (region + feat_bit) % num_classes
+    perm = rng.permutation(n)
+    return {"xyz": xyz[perm], "feats": feats[perm],
+            "labels": labels[perm].astype(np.int32)}
+
+
+def toy_batches(num_batches: int, batch_size: int, num_points: int = 2048,
+                seed: int = 0, num_classes: int = 13,
+                feat_dim: int = 12) -> Iterator[Dict]:
+    """``num_batches`` batches of ``batch_size`` padded room blocks."""
+    rng = np.random.RandomState(seed)
+    for _ in range(num_batches):
+        blocks = []
+        for _ in range(batch_size):
+            b = synthetic_room_block(rng, num_points, num_classes, feat_dim)
+            blocks.append(pad_block(b["xyz"], b["feats"], b["labels"],
+                                    num_points, rng))
+        yield stack_blocks(blocks)

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from pointcloudsegmentation_tpu.data import native
+from ..data import native
 
 # S3DIS Gaussian ratio for 6-NN: 1/(2·0.075²) (interpolate.py:140)
 S3DIS_RATIO = 1.0 / (2 * 0.075 * 0.075)
@@ -50,11 +50,9 @@ def interpolate_to_dense(sxyz: np.ndarray, sprobs: np.ndarray,
                          qxyz: np.ndarray, k: int = 6,
                          ratio: float = S3DIS_RATIO) -> np.ndarray:
     """Gaussian k-NN interpolation of probs onto the dense cloud through the
-    shared native host library (csrc/pointutil.cpp).  The device fallback is
-    not ported: a missing native library raises."""
-    if not native.available():
-        raise RuntimeError("the native host library (csrc/) is not "
-                           "available; build it with `make -C csrc`")
+    native host library (``csrc/pointutil.cpp``, built by ``data/native.py``
+    at first use).  The device fallback is not ported: a failed build
+    raises."""
     return native.interpolate_probs(sxyz, sprobs, qxyz, k, ratio,
                                     cell_hint=0.3)
 

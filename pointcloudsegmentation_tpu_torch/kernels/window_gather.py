@@ -13,8 +13,9 @@ K2 forward, K3 then the overlap-add of the slabs into point rows backward.
 
 On CUDA tensors ``gather_fwd`` and ``dslab_bwd`` launch the kernels in
 ``csrc/window_gather.cu`` and ``csrc/window_dslab.cu`` (built with nvcc for
-sm_90a at first use into ``_build/`` and bound through ctypes) and raise if
-the build or the launch fails; on CPU tensors they run their plain versions.
+sm_90a at first use into ``_build/`` by ``kernels/_build.py`` and bound
+through ctypes) and raise if the build or the launch fails; on CPU tensors
+they run their plain versions.
 K2 is a byte copy and matches its plain version exactly for every dtype.
 K3 takes float32 or bfloat16 g, sums in float32 in ascending slot order
 without float atomics, so it is bitwise repeatable, and rounds once to g's
@@ -26,21 +27,13 @@ through ``WindowGather``.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import time
-from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, NamedTuple, Optional
+from typing import Dict
 
 import torch
 from torch.autograd.function import once_differentiable
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = {"window_gather": os.path.join(_PKG, "csrc", "window_gather.cu"),
-           "window_dslab": os.path.join(_PKG, "csrc", "window_dslab.cu")}
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from . import _build
+
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = {
     # feats, lidx, out, n, k, row_bytes, tile, window, stream
@@ -48,74 +41,11 @@ _ARGTYPES = {
     # g, lidx, dslab, n, k, f, tile, window, dtype, stream
     "window_dslab": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-class Build(NamedTuple):
-    """A build of one kernel library: its path, and for a fresh build the
-    seconds nvcc took and its output (the ``-Xptxas -v`` report)."""
-
-    path: str
-    seconds: Optional[float] = None
-    log: str = ""
-
-
-_libs: Dict[str, ctypes.CDLL] = {}
-
-
-def _nvcc() -> str:
-    """The CUDA toolkit's nvcc at its standard location, else the one on
-    the search path."""
-    default = "/usr/local/cuda/bin/nvcc"
-    return default if os.path.exists(default) else "nvcc"
-
-
-def _lib_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"libpcs_{name}.so")
-
-
-def build(name: str, force: bool = False) -> Build:
-    """Compile kernel library ``name`` (a key of ``SOURCES``) if it is
-    missing or older than its source (or always with ``force``).  Raises on
-    failure."""
-    source, lib = SOURCES[name], _lib_path(name)
-    if (not force and os.path.exists(lib)
-            and os.path.getmtime(lib) >= os.path.getmtime(source)):
-        return Build(lib)
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp, source]
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=600)
-    except FileNotFoundError as e:
-        raise RuntimeError(f"nvcc not found: the {name} kernel is built "
-                           f"from {source} with the CUDA toolkit") from e
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
-    os.replace(tmp, lib)
-    return Build(lib, seconds, log)
-
-
-def build_all(force: bool = False) -> Dict[str, Build]:
-    """Build every kernel library, one nvcc per source, all at once."""
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        futures = {name: pool.submit(build, name, force) for name in SOURCES}
-        return {name: f.result() for name, f in futures.items()}
+_DTYPE_CODES: Dict[torch.dtype, int] = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _load(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        lib = ctypes.CDLL(build(name).path)
-        fn = getattr(lib, f"pcs_{name}")
-        fn.restype = ctypes.c_int
-        fn.argtypes = _ARGTYPES[name]
-        _libs[name] = lib
-    return _libs[name]
+    return _build.load(name, _ARGTYPES[name])
 
 
 def _stream(t: torch.Tensor) -> int:

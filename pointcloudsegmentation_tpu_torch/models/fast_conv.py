@@ -1,14 +1,22 @@
 """Gather-minimal PointNet conv (mirror of
 ``pointcloudsegmentation_tpu.models.fast_conv.PointNetConvFast`` on its
-windowed-plus-pool path with the search's sxyz).
+windowed-plus-pool path, with the search's sxyz or the layer's xyz fold).
 
 Every Dense over the growth concat ``[cen ‖ nbr ‖ sxyz ‖ c_1 …]`` is split
 into per-source projections; all layers' neighbor projections come from the
 same input, so they are fused into one [N, ΣD] projection and gathered once
-(through the window-gather kernel on CUDA)."""
+(through the window-gather kernel on CUDA).
+
+xyz fold (``xyz``/``inv_rescale`` given, ``sxyz`` None): the neighbor
+coordinates ride the same gather as two compute-dtype columns per axis
+(hi = xyz in the compute dtype, mid = the rest; hi + mid rebuilds xyz to
+2^-16 relative), and ``sxyz = (xyz_j - xyz_i) * inv_rescale`` is formed in
+float32 in the layer, cast to the compute dtype and detached (it is data,
+not a parameter).  The fused window-conv kernel (``kernels/fused_conv.py``)
+reads the same ``[nbr_proj ‖ hi ‖ mid]`` stream."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -17,6 +25,15 @@ from ..ops import neighbors as nb
 from .layers import Dense
 
 _NEG = -1e30
+
+
+def split_xyz(xyz: torch.Tensor, dtype: torch.dtype
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 xyz [N, 3] -> (hi, mid), the coordinate columns of the fold's
+    stream: hi = xyz in ``dtype``, mid = the remainder in ``dtype`` (hi +
+    mid rebuilds xyz to 2^-16 relative in bfloat16)."""
+    hi = xyz.to(dtype)
+    return hi, (xyz - hi.float()).to(dtype)
 
 
 class PointNetConvFast(nn.Module):
@@ -38,14 +55,26 @@ class PointNetConvFast(nn.Module):
                 self.add_module(f"fc_{i}_h{j}", Dense(self.dims[j], d,
                                                       bias=False, dtype=dtype))
 
-    def forward(self, sxyz: torch.Tensor, feats: torch.Tensor,
-                nbr) -> torch.Tensor:
+    def forward(self, sxyz: Optional[torch.Tensor], feats: torch.Tensor,
+                nbr, xyz: Optional[torch.Tensor] = None,
+                inv_rescale: float = 1.0) -> torch.Tensor:
         """sxyz [N, K, 3] (already divided by the stage rescale), feats
-        [N, F], nbr a WindowedNeighborhood or Neighborhood -> [N, Dout]."""
+        [N, F], nbr a WindowedNeighborhood or Neighborhood -> [N, Dout].
+        With ``xyz`` [N, 3] float32 the layer forms sxyz itself (the xyz
+        fold) and ``sxyz`` is ignored."""
         fc = lambda name: getattr(self, name)  # noqa: E731
         nbr_proj = torch.cat([fc(f"fc_{i}_nbr")(feats)
                               for i in range(len(self.dims))], dim=-1)
-        nbr_all = nb.gather_neighbors(nbr_proj, nbr)          # [N, K, ΣD]
+        if xyz is not None:
+            sd, cdt = nbr_proj.shape[-1], nbr_proj.dtype
+            hi, mid = split_xyz(xyz, cdt)
+            g = nb.gather_neighbors(torch.cat([nbr_proj, hi, mid], dim=-1),
+                                    nbr)                      # [N, K, ΣD+6]
+            nbr_all = g[..., :sd]
+            xyz_j = g[..., sd:sd + 3].float() + g[..., sd + 3:].float()
+            sxyz = ((xyz_j - xyz[:, None, :]) * inv_rescale).to(cdt).detach()
+        else:
+            nbr_all = nb.gather_neighbors(nbr_proj, nbr)      # [N, K, ΣD]
         hiddens = []
         out = None
         for i in range(len(self.dims)):

@@ -21,7 +21,6 @@ the first line.
 """
 from __future__ import annotations
 
-import subprocess
 import time
 from collections import defaultdict
 from typing import Dict, List
@@ -74,35 +73,27 @@ def summarize(averages, steps: int, step_s: float) -> Dict:
                        key=lambda r: -r[1]))
 
 
-def _card() -> str:
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    return smi.stdout.strip().splitlines()[0].strip() \
-        if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi failed"
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
 
     from torch.profiler import ProfilerActivity, profile
 
-    from pointcloudsegmentation_tpu.data import toy
-
     from .config import s3dis_config
+    from .data import toy
     from .data.provider import to_device
     from .train.loop import Trainer
+    from .utils.timing import card as card_name
 
-    card = _card()
+    card = card_name()
     print(f"[profile] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     cfg = s3dis_config()
     trainer = Trainer(cfg, device="cuda")
     state = trainer.init_state(torch.Generator().manual_seed(0))
     batches = [to_device(b, "cuda") for b in toy.toy_batches(
-        2, batch_size=BLOCKS, num_points=POINTS, kind="room",
-        num_classes=13, feat_dim=12)]
+        2, batch_size=BLOCKS, num_points=POINTS, num_classes=13,
+        feat_dim=12)]
     for i in range(2):                                   # build + warm-up
         state, m = trainer.train_step(state, batches[i])
     torch.cuda.synchronize()

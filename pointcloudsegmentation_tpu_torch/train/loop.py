@@ -147,10 +147,11 @@ def _bind_flat(model: nn.Module, layout, flat: torch.Tensor,
 class Trainer:
     """Owns the model, the flat parameter and gradient buffers and the
     class weights; ``train_step``/``eval_step`` map (state, batch) to
-    (state, metrics) like the JAX trainer.  A state's tensors are never
-    written in place, so an old state stays valid after a step."""
+    (state, metrics) like the JAX trainer, on ``device`` (the card unless
+    the caller asks for the CPU).  A state's tensors are never written in
+    place, so an old state stays valid after a step."""
 
-    def __init__(self, cfg: TrainConfig, device="cpu",
+    def __init__(self, cfg: TrainConfig, device="cuda",
                  search_chunk: int = 1024, **encoder_kw):
         self.cfg = cfg
         self.device = torch.device(device)

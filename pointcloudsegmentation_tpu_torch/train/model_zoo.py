@@ -65,11 +65,12 @@ _ARCHS = {"pointnet_s3dis": lambda: S3DIS_ARCH, "tiny_s3dis": tiny_arch}
 
 
 def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
-                device="cpu", **encoder_kw) -> SegmentationModel:
+                device="cuda", **encoder_kw) -> SegmentationModel:
     """Build ``cfg.model`` with ``cfg.compute_dtype`` compute.  Weights are
     Glorot-uniform draws from ``generator`` (on the CPU, so every device
     gets the same weights) or zeros without one, e.g. before loading a
-    converted state_dict.  ``encoder_kw`` override PointNetSegEncoder
+    converted state_dict.  The model lives on ``device``: the card unless
+    the caller asks for the CPU.  ``encoder_kw`` override PointNetSegEncoder
     settings (win_tile, win_window, search_chunk)."""
     if cfg.model not in _ARCHS:
         raise KeyError(f"unknown model '{cfg.model}'; ported: "

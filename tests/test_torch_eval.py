@@ -49,7 +49,7 @@ def test_eval_scene_probs_and_interpolation(monkeypatch):
     jxyz, jprobs = jeval.eval_scene_probs(apply_fn, params, blocks)
 
     tmodel = tbuild(ts3dis(model="tiny_s3dis", compute_dtype="float32",
-                           data_caps=caps),
+                           data_caps=caps), device="cpu",
                     win_tile=64, win_window=64, search_chunk=512)
     load_flax_params(tmodel, params)
     txyz, tprobs = teval.eval_scene_probs(tmodel, blocks)

@@ -62,7 +62,7 @@ def test_tiny_s3dis_end_to_end(monkeypatch):
     want = np.array(jmodel.apply(params, xyz, feats, mask, False))
 
     tmodel = tbuild(ts3dis(model="tiny_s3dis", compute_dtype="float32",
-                           data_caps=caps),
+                           data_caps=caps), device="cpu",
                     win_tile=64, win_window=64, search_chunk=512)
     load_flax_params(tmodel, params)
     with torch.no_grad():
@@ -97,7 +97,8 @@ def test_flagship_encoder_and_head(flagship):
                                 for lv in jpyr.levels),
                    seg=tuple(t(s) for s in jpyr.seg),
                    dxyz=tuple(t(d) for d in jpyr.dxyz), morton_sorted=True)
-    tmodel = tbuild(ts3dis(compute_dtype="float32", data_caps=caps))
+    tmodel = tbuild(ts3dis(compute_dtype="float32", data_caps=caps),
+                    device="cpu")
     load_flax_params(tmodel, params)
     with torch.no_grad():
         tz, tlf = tmodel.encoder(tpyr, t(feats))
@@ -112,7 +113,8 @@ def test_flagship_convert_round_trip(flagship):
     leaves = jax.tree_util.tree_leaves_with_path(params)
     assert len(leaves) == 339
     assert sum(leaf.size for _, leaf in leaves) == 1_765_097
-    tmodel = tbuild(ts3dis(compute_dtype="float32", data_caps=caps))
+    tmodel = tbuild(ts3dis(compute_dtype="float32", data_caps=caps),
+                    device="cpu")
     load_flax_params(tmodel, params)
     sd = tmodel.state_dict()
     assert len(sd) == 339

@@ -1,0 +1,140 @@
+"""Rules the port keeps as a package: it imports neither JAX nor the JAX
+package (its host code is its own copy, and gives the same arrays), and its
+entry points run on the card unless the caller asks for the CPU."""
+import inspect
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from pointcloudsegmentation_tpu.data import batching as jbatching
+from pointcloudsegmentation_tpu.data import native as jnative
+from pointcloudsegmentation_tpu.data import toy as jtoy
+from pointcloudsegmentation_tpu_torch import bench_fused_conv
+from pointcloudsegmentation_tpu_torch.data import batching as tbatching
+from pointcloudsegmentation_tpu_torch.data import native as tnative
+from pointcloudsegmentation_tpu_torch.data import toy as ttoy
+from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "pointcloudsegmentation_tpu_torch")
+
+# imports every module of the port and chip_smoke.py's module-level code,
+# then names whatever of JAX or the JAX package got imported
+_PROBE = """
+import importlib, pkgutil, sys
+sys.path.insert(0, {root!r})
+import pointcloudsegmentation_tpu_torch as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(sorted(n for n in sys.modules if n in ("jax", "jaxlib", "flax")
+             or n.split(".")[0] == "pointcloudsegmentation_tpu"))
+"""
+_IMPORT = re.compile(r"^\s*(import\s+(jax|jaxlib|flax|pointcloudsegmentation_tpu)"
+                     r"\b|from\s+(jax|jaxlib|flax|pointcloudsegmentation_tpu)"
+                     r"[\s.])")
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    probe = _PROBE.format(root=ROOT, smoke=os.path.join(ROOT, "chip_smoke.py"))
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]", proc.stdout
+
+
+def test_port_sources_name_no_jax_import():
+    """Imports inside functions too: no line of the port or of
+    chip_smoke.py imports JAX or the JAX package."""
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
+        if f.endswith(".py")]
+    bad = [f"{path}:{i}: {line.strip()}" for path in files
+           for i, line in enumerate(open(path), 1) if _IMPORT.match(line)]
+    assert len(files) > 30 and not bad, bad
+
+
+@pytest.mark.parametrize("classes_feats", [(13, 12), (21, 5)])
+def test_toy_copy_gives_the_jax_arrays(classes_feats):
+    num_classes, feat_dim = classes_feats
+    kw = dict(num_points=700, seed=3, num_classes=num_classes,
+              feat_dim=feat_dim)
+    want = list(jtoy.toy_batches(2, 3, kind="room", **kw))
+    got = list(ttoy.toy_batches(2, 3, **kw))
+    for w, g in zip(want, got):
+        assert w.keys() == g.keys()
+        for key in w:
+            assert g[key].dtype == w[key].dtype
+            np.testing.assert_array_equal(g[key], w[key])
+    w = jtoy.synthetic_room_block(np.random.RandomState(5), 1000,
+                                  num_classes, feat_dim)
+    g = ttoy.synthetic_room_block(np.random.RandomState(5), 1000,
+                                  num_classes, feat_dim)
+    for key in w:
+        np.testing.assert_array_equal(g[key], w[key])
+
+
+@pytest.mark.parametrize("n", [50, 130])   # padded, subsampled to 100 points
+def test_batching_copy_gives_the_jax_arrays(n):
+    rng = np.random.RandomState(n)
+    inputs = [(rng.randn(m, 3).astype(np.float32),
+               rng.randn(m, 4).astype(np.float32),
+               rng.randint(0, 9, m).astype(np.int32)) for m in (n, 100)]
+    blocks = {mod: [mod.pad_block(*x, 100, np.random.RandomState(i))
+                    for i, x in enumerate(inputs)]
+              for mod in (jbatching, tbatching)}
+    for w, g in zip(blocks[jbatching], blocks[tbatching]):
+        assert w.keys() == g.keys()
+        for key in w:
+            assert g[key].dtype == w[key].dtype
+            np.testing.assert_array_equal(g[key], w[key])
+    w = jbatching.stack_blocks(blocks[jbatching])
+    g = tbatching.stack_blocks(blocks[tbatching])
+    assert w.keys() == g.keys()
+    for key in w:
+        assert g[key].shape[:2] == (2, 100)
+        np.testing.assert_array_equal(g[key], w[key])
+
+
+def test_native_copy_builds_in_the_port_and_matches():
+    """The port's binding builds ``csrc/pointutil.cpp`` into its own
+    ``_build/`` and interpolates as the JAX package's binding does."""
+    rng = np.random.RandomState(0)
+    sxyz = rng.uniform(0, 3, (2000, 3)).astype(np.float32)
+    sprobs = rng.dirichlet(np.ones(13), 2000).astype(np.float32)
+    qxyz = rng.uniform(0, 3, (5000, 3)).astype(np.float32)
+    got = tnative.interpolate_probs(sxyz, sprobs, qxyz, 6, 88.9, 0.3)
+    assert os.path.dirname(tnative.LIB) == os.path.join(PORT, "_build")
+    assert os.path.exists(tnative.LIB)
+    jnative.ensure_built()
+    want = jnative.interpolate_probs(sxyz, sprobs, qxyz, 6, 88.9, 0.3)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("entry", ["build_model", "Trainer", "bench_setup"])
+def test_entry_points_default_to_the_card(entry):
+    fn = {"build_model": build_model, "Trainer": Trainer.__init__,
+          "bench_setup": bench_fused_conv.setup}[entry]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_bench_cli_defaults_to_the_card(monkeypatch):
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def setup(level, device):
+        seen.update(level=level, device=device)
+        raise Stop
+
+    monkeypatch.setattr(bench_fused_conv, "setup", setup)
+    with pytest.raises(Stop):
+        bench_fused_conv.main(["--level", "1"])
+    assert seen == {"level": 1, "device": "cuda"}

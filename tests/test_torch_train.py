@@ -50,7 +50,7 @@ TILE = dict(win_tile=64, win_window=64, search_chunk=256)
 
 
 def _tiny_trainer(**kw):
-    return tloop.Trainer(ts3dis(**{**TINY, **kw}), **TILE)
+    return tloop.Trainer(ts3dis(**{**TINY, **kw}), device="cpu", **TILE)
 
 
 # -- loss, schedule, Adam, metrics ------------------------------------------
@@ -295,7 +295,7 @@ def test_scannet_ignore_label():
     cfg = scannet_config(model="tiny_s3dis", data_num_points=N,
                          data_caps=(256, 64), data_feat_dim=1,
                          optim_epoch_steps=10)
-    trainer = tloop.Trainer(cfg, **TILE)
+    trainer = tloop.Trainer(cfg, device="cpu", **TILE)
     state = trainer.init_state(torch.Generator().manual_seed(0))
     batch = next(toy.toy_batches(1, batch_size=1, num_points=N,
                                  kind="room", num_classes=21, feat_dim=1))
