@@ -10,10 +10,12 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    and the native host library (g++, ``csrc/pointutil.cpp``) are built from
    the checkout's sources into the port's gitignored ``_build/``;
 3. kernel vs plain: the window-gather kernel against its plain PyTorch
-   version at every shape the flagship's inference path gives it, bit for
-   bit, timed with CUDA events both eagerly (host dispatch included) and as
-   CUDA-graph replays (device time), beside its bound and one PyTorch call
-   for the same gather (``index_select``);
+   version at every shape the flagship's inference path gives it, on
+   uniform random slab indices and on the indices the flagship's windowed
+   search gives the first toy block at levels 0 and 1 (one case per conv
+   band), bit for bit, timed with CUDA events both eagerly (host dispatch
+   included) and as CUDA-graph replays (device time), beside its bound and
+   one PyTorch call for the same gather (``index_select``);
 4. serve: the flagship ``pointnet_s3dis`` (bf16 compute, weights drawn from
    torch.Generator seed 0) sweeps 8 blocks of 8192 points through
    ``eval_scene_probs`` and interpolates to a 4x-dense cloud; the kernel's
@@ -21,11 +23,13 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
 5. determinism and parity: one block twice on the card gives bitwise-equal
    logits; in float32 the card and the CPU agree on neighbor indices and
    logit argmax;
-6. slab-gradient kernel vs plain: the window gather's backward kernel
-   against its plain PyTorch version at every conv shape of the flagship,
-   bf16 and one float32 case: two runs bitwise equal, float32 within 1e-6
-   relative, bf16 within one bf16 ulp, timed like phase 3, beside its bound
-   and ``index_add_`` (atomic, so timed only);
+6. slab-gradient kernels vs plain: the window gather's backward (its map
+   kernel, then its sum kernel) against the plain PyTorch versions at every
+   conv shape of the flagship, bf16 and one float32 case, on random and on
+   the search's own indices as in phase 3: the map bit for bit, the sums
+   in two runs bitwise equal, float32 within 1e-6 relative, bf16 within
+   one bf16 ulp, timed like phase 3, beside their bounds, a stable
+   ``torch.sort`` (map) and ``index_add_`` (sums; atomic, so timed only);
 7. train: the flagship at full width (bf16 compute, weights from
    torch.Generator seed 0, S3DIS class weights) takes training steps on 4
    blocks of 8192 points: the backward kernels' determinism one op at a
@@ -89,7 +93,7 @@ def bound_ms(n_bytes, flops, dtype):
     """The least time the card could take: bytes at the HBM rate or
     operations at the peak for ``dtype``, whichever is larger."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    by_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3 if flops else 0.0
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
         "operations"
 
@@ -155,11 +159,86 @@ def gather_shapes(model, cfg):
     return shapes
 
 
-def phase_kernel(model, cfg, card):
+def path_neighborhoods(model, cfg, xyz, mask):
+    """(level, (radius, min_radius, K), neighborhood) of every conv band
+    the flagship's search gives one block: the Morton sort, the pyramid and
+    each stage's multi-band search, as the encoder runs them."""
+    from pointcloudsegmentation_tpu_torch.ops import hierarchy, morton
+
+    enc = model.encoder
+    xs, ms, _ = morton.sort_block(xyz, mask, cfg.data.voxel_sizes[0] / 4,
+                                  cfg.data.block_size)
+    pyr = hierarchy.build_pyramid(xs, ms, cfg.data.voxel_sizes, cfg.data.caps,
+                                  cfg.data.block_size, morton_sorted=True)
+    out = []
+    for s, stage in enumerate(enc.arch.stages):
+        specs = [(c.radius, c.min_radius, c.k) for c in stage.convs]
+        res = enc._stage_neighborhoods(pyr.levels[s].xyz, pyr.levels[s].mask,
+                                       specs, pyr.level_sorted(s))
+        out.extend((s, spec, nb) for spec, (nb, _) in res.items())
+    return out
+
+
+def path_lidx(model, cfg):
+    """(name, lidx [N, K], F) of each windowed conv band at levels 0 and 1
+    on the first toy block (seed 0): the slab indices the flagship's search
+    gives the window gather, F the width of the band's first conv."""
+    import torch
+
+    b = make_blocks("cuda")[0][0]
+    with torch.no_grad():
+        nbs = path_neighborhoods(model, cfg, b["xyz"], b["mask"])
+    widths = {}
+    for s, stage in enumerate(model.encoder.arch.stages):
+        for c in stage.convs:
+            widths.setdefault((s, (c.radius, c.min_radius, c.k)),
+                              sum(c.fc_dims) + c.out)
+    return [(f"L{s} path r={spec[0]:g} K={spec[2]}", nb.lidx.contiguous(),
+             widths[(s, spec)]) for s, spec, nb in nbs
+            if s <= 1 and hasattr(nb, "lidx")]
+
+
+def k2_case(name, feats, lidx, window, tile, card):
+    """K2 against its plain version on one input, bit for bit, then timed
+    beside its bound and ``index_select``."""
     import torch
 
     from pointcloudsegmentation_tpu_torch.kernels import window_gather as wg
     from pointcloudsegmentation_tpu_torch.utils.timing import cuda_ms, graph_ms
+
+    (n, f), k, dtype = feats.shape, lidx.shape[1], feats.dtype
+    got = wg.gather_fwd(feats, lidx, window, tile)
+    want = wg.gather_fwd_reference(feats, lidx, window, tile)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want),
+          f"kernel != plain at {name} N={n} K={k} F={f} {dtype}")
+    err = (got.float() - want.float()).abs().max().item()
+    kernel = lambda: wg.gather_fwd(feats, lidx, window, tile)  # noqa: E731
+    plain = lambda: wg.gather_fwd_reference(  # noqa: E731
+        feats, lidx, window, tile)
+    # one PyTorch call for the same gather: pad and row ids built outside
+    fp_pad = torch.nn.functional.pad(feats, (0, 0, window, window))
+    rowid = ((torch.arange(n, device="cuda") // tile * tile)[:, None]
+             + lidx).reshape(-1)
+    library = lambda: fp_pad.index_select(0, rowid)  # noqa: E731
+    eager_ms, eager_plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+    library_ms = graph_ms(library)
+    bound, bound_by = bound_ms(nbytes(feats, lidx, got), 0, dtype)
+    mb = n * k * f * feats.element_size() / 1e6
+    log(f"[kernel] {name:18s} N={n:5d} K={k:2d} F={f:3d} "
+        f"{str(dtype):14s} equal; device ms (graph replay): kernel "
+        f"{ms:.4f} ({mb / ms:.1f} GB/s written, {bound / ms:.3f} of the "
+        f"bound), plain {plain_ms:.4f}, index_select {library_ms:.4f}, "
+        f"bound {bound:.4f} ({bound_by}); eager ms: kernel {eager_ms:.4f}, "
+        f"plain {eager_plain_ms:.4f} [{card}]")
+    return dict(name=name, n=n, k=k, f=f, dtype=str(dtype),
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def phase_kernel(model, cfg, card):
+    import torch
 
     tile, window = model.encoder.win_tile, model.encoder.win_window
     s = tile + 2 * window
@@ -174,35 +253,11 @@ def phase_kernel(model, cfg, card):
                              dtype=torch.int32)
         lidx[:, 0] = 0          # the zero rows before the block's start
         lidx[:, -1] = s - 1     # ... and past its end
-        got = wg.gather_fwd(feats, lidx, window, tile)
-        want = wg.gather_fwd_reference(feats, lidx, window, tile)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want),
-              f"kernel != plain at {name} N={n} K={k} F={f} {dtype}")
-        err = (got.float() - want.float()).abs().max().item()
-        kernel = lambda: wg.gather_fwd(feats, lidx, window, tile)  # noqa
-        plain = lambda: wg.gather_fwd_reference(  # noqa: E731
-            feats, lidx, window, tile)
-        # one PyTorch call for the same gather: pad and row ids built outside
-        fp_pad = torch.nn.functional.pad(feats, (0, 0, window, window))
-        rowid = ((torch.arange(n, device="cuda") // tile * tile)[:, None]
-                 + lidx).reshape(-1)
-        library = lambda: fp_pad.index_select(0, rowid)  # noqa: E731
-        eager_ms, eager_plain_ms = cuda_ms(kernel), cuda_ms(plain)
-        ms, plain_ms = graph_ms(kernel), graph_ms(plain)
-        library_ms = graph_ms(library)
-        bound, bound_by = bound_ms(nbytes(feats, lidx, got), 0, dtype)
-        mb = n * k * f * feats.element_size() / 1e6
-        rows.append(dict(name=name, n=n, k=k, f=f, dtype=str(dtype),
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound, bound_by=bound_by,
-                         library_ms=library_ms))
-        log(f"[kernel] {name:16s} N={n:5d} K={k:2d} F={f:3d} "
-            f"{str(dtype):14s} equal; device ms (graph replay): kernel "
-            f"{ms:.4f} ({mb / ms:.1f} GB/s written), plain {plain_ms:.4f}, "
-            f"index_select {library_ms:.4f}, bound {bound:.4f} ({bound_by}); "
-            f"eager ms: kernel {eager_ms:.4f}, plain {eager_plain_ms:.4f} "
-            f"[{card}]")
+        rows.append(k2_case(name, feats, lidx, window, tile, card))
+    for name, lidx, f in path_lidx(model, cfg):
+        feats = torch.randn((lidx.shape[0], f), generator=gen,
+                            device="cuda").to(model.encoder.dtype)
+        rows.append(k2_case(name, feats, lidx, window, tile, card))
     return rows
 
 
@@ -282,7 +337,6 @@ def phase_parity(serve, cfg, block, card):
 
     import torch
 
-    from pointcloudsegmentation_tpu_torch.ops import hierarchy, morton
     from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
 
     xyz, feats, mask = block
@@ -298,25 +352,14 @@ def phase_parity(serve, cfg, block, card):
     out = {}
     for dev in ("cuda", "cpu"):
         model = build_model(f32, torch.Generator().manual_seed(0), dev).eval()
-        enc = model.encoder
         with torch.inference_mode():
             x, m, f = xyz.to(dev), mask.to(dev), feats.to(dev)
             logits = model(x, f, m).cpu()
-            xs, ms, _ = morton.sort_block(x, m, cfg.data.voxel_sizes[0] / 4,
-                                          cfg.data.block_size)
-            pyr = hierarchy.build_pyramid(xs, ms, cfg.data.voxel_sizes,
-                                          cfg.data.caps, cfg.data.block_size,
-                                          morton_sorted=True)
             nbrs = []
-            for s, stage in enumerate(enc.arch.stages):
-                specs = [(c.radius, c.min_radius, c.k) for c in stage.convs]
-                res = enc._stage_neighborhoods(pyr.levels[s].xyz,
-                                               pyr.levels[s].mask, specs,
-                                               pyr.level_sorted(s))
-                for spec, (nb, _) in res.items():
-                    nb = nb.to_neighborhood() if hasattr(
-                        nb, "to_neighborhood") else nb
-                    nbrs.append((f"L{s} {spec}", nb.idx.cpu(), nb.mask.cpu()))
+            for s, spec, nb in path_neighborhoods(model, cfg, x, m):
+                nb = nb.to_neighborhood() if hasattr(
+                    nb, "to_neighborhood") else nb
+                nbrs.append((f"L{s} {spec}", nb.idx.cpu(), nb.mask.cpu()))
         out[dev] = (logits, nbrs)
     total = bad = 0
     for (name, gi, gm), (_, ci, cm) in zip(out["cuda"][1], out["cpu"][1]):
@@ -348,13 +391,93 @@ def bf16_ulp(x):
     return torch.pow(2.0, e - 7)
 
 
-def phase_dslab(model, cfg, card):
-    """The slab-gradient kernel against its plain version at each conv
-    shape of the flagship (bf16), plus the L0 K=32 shape in float32."""
+def k3_case(name, g, lidx, window, tile, card):
+    """K3's map kernel against its plain version bit for bit, then K3
+    against its plain version: two runs bitwise equal, float32 within
+    DSLAB_F32_RTOL relative, bf16 within one bf16 ulp; both timed beside
+    their bounds and one PyTorch call each."""
     import torch
 
     from pointcloudsegmentation_tpu_torch.kernels import window_gather as wg
     from pointcloudsegmentation_tpu_torch.utils.timing import cuda_ms, graph_ms
+
+    (n, k, f), dtype = g.shape, g.dtype
+    s = tile + 2 * window
+    what = f"{name} N={n} K={k} F={f} {dtype}"
+    start, order = wg.dslab_map(lidx, window, tile)
+    rstart, rorder = wg.dslab_map_reference(lidx, window, tile)
+    got = wg.dslab_bwd(g, lidx, window, tile)
+    again = wg.dslab_bwd(g, lidx, window, tile)
+    want = wg.dslab_bwd_reference(g, lidx, window, tile)
+    torch.cuda.synchronize()
+    check(torch.equal(start, rstart) and torch.equal(order, rorder),
+          f"slab-gradient map kernel != plain at {what}")
+    check(torch.equal(got, again),
+          f"slab-gradient kernel not repeatable at {what}")
+    d = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        bound = DSLAB_F32_RTOL * want.abs()
+        stated = f"<= {DSLAB_F32_RTOL:g} relative"
+    else:
+        bound = bf16_ulp(want.float())
+        stated = "<= 1 bf16 ulp"
+    n_diff = int((d > 0).sum())
+    check(bool((d <= bound).all()),
+          f"slab-gradient kernel != plain at {what}: "
+          f"{int((d > bound).sum())} elements beyond {stated}")
+    err = d.max().item()
+    kernel = lambda: wg.dslab_bwd(g, lidx, window, tile)  # noqa: E731
+    plain = lambda: wg.dslab_bwd_reference(  # noqa: E731
+        g, lidx, window, tile)
+    # one PyTorch call for the same sums (atomic, not repeatable: timed
+    # only); segment ids, the float32 copy of g and the sums' buffer made
+    # outside
+    lid = lidx.reshape(-1).long()
+    seg = torch.where(
+        (lid >= 0) & (lid < s),
+        torch.arange(n * k, device="cuda") // (tile * k) * s + lid,
+        torch.full_like(lid, n // tile * s))
+    g32 = g.reshape(-1, f).float()
+    sums = torch.zeros(n // tile * s + 1, f, dtype=torch.float32,
+                       device="cuda")
+    library = lambda: sums.zero_().index_add_(0, seg, g32)  # noqa: E731
+    eager_ms, eager_plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+    library_ms = graph_ms(library)
+    # the sums: one add per element of g
+    bound_t, bound_by = bound_ms(nbytes(g, lidx, got), g.numel(), dtype)
+    # the map alone, beside a stable sort of the same keys per tile
+    key = torch.where((lid >= 0) & (lid < s), lid,
+                      torch.full_like(lid, s)).reshape(n // tile, tile * k)
+    map_ms = graph_ms(lambda: wg.dslab_map(lidx, window, tile))
+    map_plain_ms = graph_ms(lambda: wg.dslab_map_reference(lidx, window,
+                                                           tile))
+    sort_ms = graph_ms(lambda: torch.sort(key, dim=1, stable=True))
+    map_bound, map_by = bound_ms(nbytes(lidx, start, order), 0, torch.int32)
+    mb = (g.numel() + want.numel()) * g.element_size() / 1e6
+    log(f"[dslab] {name:18s} N={n:5d} K={k:2d} F={f:3d} {str(dtype):14s} "
+        f"map equal, repeatable; {n_diff} of {d.numel()} elements differ "
+        f"from plain (max {err:.3e}, {stated}); device ms (graph replay): "
+        f"kernel {ms:.4f} ({mb / ms:.1f} GB/s read+written, "
+        f"{bound_t / ms:.3f} of the bound; map kernel alone {map_ms:.4f}), "
+        f"plain {plain_ms:.4f}, index_add_ {library_ms:.4f}, bound "
+        f"{bound_t:.4f} ({bound_by}); map: plain {map_plain_ms:.4f}, "
+        f"stable sort {sort_ms:.4f}, bound {map_bound:.4f} ({map_by}); "
+        f"eager ms: kernel {eager_ms:.4f}, plain {eager_plain_ms:.4f} "
+        f"[{card}]")
+    return dict(name=name, n=n, k=k, f=f, dtype=str(dtype),
+                max_abs_err=err, n_diff=n_diff, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_t, bound_by=bound_by, library_ms=library_ms,
+                map=dict(max_abs_err=0.0, ms=map_ms, plain_ms=map_plain_ms,
+                         bound_ms=map_bound, bound_by=map_by,
+                         library_ms=sort_ms))
+
+
+def phase_dslab(model, cfg, card):
+    """The slab-gradient kernels against their plain versions at each conv
+    shape of the flagship (bf16), the L0 K=32 shape in float32, and the
+    search's own indices at levels 0 and 1 (bf16)."""
+    import torch
 
     tile, window = model.encoder.win_tile, model.encoder.win_window
     s = tile + 2 * window
@@ -365,7 +488,6 @@ def phase_dslab(model, cfg, card):
     names = {(n, k, f): name for name, n, k, f, _ in convs}
     rows = []
     for n, k, f, dtype in cases:
-        name = names[(n, k, f)]
         g = torch.randn((n, k, f), generator=gen, device="cuda").to(dtype)
         lidx = torch.randint(0, s, (n, k), generator=gen, device="cuda",
                              dtype=torch.int32)
@@ -373,55 +495,11 @@ def phase_dslab(model, cfg, card):
         lidx[:, -1] = s - 1     # ... and its last
         lidx[::3, 1] = 7        # one row read by a third of the slots
         lidx[::2, 2] = lidx[::2, 3]      # many repeated rows
-        got = wg.dslab_bwd(g, lidx, window, tile)
-        again = wg.dslab_bwd(g, lidx, window, tile)
-        want = wg.dslab_bwd_reference(g, lidx, window, tile)
-        torch.cuda.synchronize()
-        check(torch.equal(got, again),
-              f"slab-gradient kernel not repeatable at {name} N={n} K={k} "
-              f"F={f} {dtype}")
-        d = (got.float() - want.float()).abs()
-        if dtype == torch.float32:
-            bound = DSLAB_F32_RTOL * want.abs()
-            what = f"<= {DSLAB_F32_RTOL:g} relative"
-        else:
-            bound = bf16_ulp(want.float())
-            what = "<= 1 bf16 ulp"
-        n_diff = int((d > 0).sum())
-        check(bool((d <= bound).all()),
-              f"slab-gradient kernel != plain at {name} N={n} K={k} F={f} "
-              f"{dtype}: {int((d > bound).sum())} elements beyond {what}")
-        err = d.max().item()
-        kernel = lambda: wg.dslab_bwd(g, lidx, window, tile)  # noqa: E731
-        plain = lambda: wg.dslab_bwd_reference(  # noqa: E731
-            g, lidx, window, tile)
-        # one PyTorch call for the same sums (atomic, not repeatable: timed
-        # only); segment ids built outside
-        lid = lidx.reshape(-1).long()
-        seg = torch.where(
-            (lid >= 0) & (lid < s),
-            torch.arange(n * k, device="cuda") // (tile * k) * s + lid,
-            torch.full_like(lid, n // tile * s))
-        library = lambda: torch.zeros(  # noqa: E731
-            n // tile * s + 1, f, dtype=torch.float32,
-            device="cuda").index_add_(0, seg, g.view(-1, f).float())
-        eager_ms, eager_plain_ms = cuda_ms(kernel), cuda_ms(plain)
-        ms, plain_ms = graph_ms(kernel), graph_ms(plain)
-        library_ms = graph_ms(library)
-        # the sums: one add per element of g
-        bound, bound_by = bound_ms(nbytes(g, lidx, got), g.numel(), dtype)
-        mb = (g.numel() + want.numel()) * g.element_size() / 1e6
-        rows.append(dict(name=name, n=n, k=k, f=f, dtype=str(dtype),
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound, bound_by=bound_by,
-                         library_ms=library_ms))
-        log(f"[dslab] {name:8s} N={n:5d} K={k:2d} F={f:3d} {str(dtype):14s} "
-            f"repeatable; {n_diff} of {d.numel()} elements differ from plain "
-            f"(max {err:.3e}, {what}); device ms (graph replay): kernel "
-            f"{ms:.4f} ({mb / ms:.1f} GB/s read+written), plain "
-            f"{plain_ms:.4f}, index_add_ {library_ms:.4f}, bound {bound:.4f} "
-            f"({bound_by}); eager ms: kernel {eager_ms:.4f}, plain "
-            f"{eager_plain_ms:.4f} [{card}]")
+        rows.append(k3_case(names[(n, k, f)], g, lidx, window, tile, card))
+    for name, lidx, f in path_lidx(model, cfg):
+        g = torch.randn((lidx.shape[0], lidx.shape[1], f), generator=gen,
+                        device="cuda").to(model.encoder.dtype)
+        rows.append(k3_case(name, g, lidx, window, tile, card))
     return rows
 
 
@@ -505,21 +583,26 @@ def phase_train(cfg, card):
 
     # launch counts over one step of the training path
     wg.gather_fwd.launches = wg.dslab_bwd.launches = 0
+    wg.dslab_map.launches = 0
     state, m = trainer.train_step(state, batches[1])
     torch.cuda.synchronize()
     launches = {"window_gather": wg.gather_fwd.launches,
-                "window_dslab": wg.dslab_bwd.launches}
+                "window_dslab": wg.dslab_bwd.launches,
+                "window_dslab_map": wg.dslab_map.launches}
     convs = sum(len(st.convs) for st in trainer.model.encoder.arch.stages)
     per_block = len(gather_shapes(trainer.model, cfg))
     log(f"[train] launches in one step: window_gather "
         f"{launches['window_gather']} ({launches['window_gather'] / TRAIN_BLOCKS:g}"
         f" per block, expected {per_block}), window_dslab "
         f"{launches['window_dslab']} ({launches['window_dslab'] / TRAIN_BLOCKS:g}"
-        f" per block, expected {convs})")
+        f" per block, expected {convs}), its map kernel "
+        f"{launches['window_dslab_map']}")
     check(launches["window_gather"] == per_block * TRAIN_BLOCKS,
           f"window_gather launched {launches['window_gather']} times")
     check(launches["window_dslab"] == convs * TRAIN_BLOCKS,
           f"window_dslab launched {launches['window_dslab']} times")
+    check(launches["window_dslab_map"] == convs * TRAIN_BLOCKS,
+          f"window_dslab_map launched {launches['window_dslab_map']} times")
 
     # 20 steps on one batch: finite, falling loss
     losses = []
@@ -741,7 +824,6 @@ def main() -> int:
     sys.path.insert(0, ROOT)
 
     from pointcloudsegmentation_tpu_torch.config import s3dis_config
-    from pointcloudsegmentation_tpu_torch.kernels import window_gather as wg
     from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
 
     t_start = time.perf_counter()
@@ -764,7 +846,8 @@ def main() -> int:
         f"kernel times below are {main_row['name']} N={main_row['n']} "
         f"K={main_row['k']} F={main_row['f']} {main_row['dtype']} (gather), "
         f"{dmain['name']} N={dmain['n']} K={dmain['k']} F={dmain['f']} "
-        f"{dmain['dtype']} (slab gradient) and {fmain['name']} "
+        f"{dmain['dtype']} (slab gradient: map and sum kernels; the map "
+        f"alone in its own row) and {fmain['name']} "
         f"{fmain['dtype']} (fused conv); launches are the serve sweep's plus "
         f"one training step's, and the fused-conv bench's; eval {pps:.1f} "
         f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "
@@ -789,6 +872,15 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in drows),
         "library_ms": dmain["library_ms"],
     }, **{key: dmain[key] for key in timing}), dict({
+        "name": "window_dslab_map",
+        "route": "cuda",
+        "source": "pointcloudsegmentation_tpu_torch/csrc/window_dslab.cu",
+        "replaces":
+            "pointcloudsegmentation_tpu/ops/pallas/window_gather.py:125",
+        "launches": train_launches["window_dslab_map"],
+        "max_abs_err": 0.0,
+        "library_ms": dmain["map"]["library_ms"],
+    }, **{key: dmain["map"][key] for key in timing}), dict({
         "name": "fused_window_conv",
         "route": "cuda",
         "source": "pointcloudsegmentation_tpu_torch/csrc/fused_window_conv.cu",

@@ -83,14 +83,15 @@ def build_all(force: bool = False) -> Dict[str, Build]:
         return {name: f.result() for name, f in futures.items()}
 
 
-def load(name: str, argtypes: list) -> ctypes.CDLL:
-    """The kernel library ``name``, built if needed, with its one entry
-    point ``pcs_<name>`` bound to ``argtypes`` and an int (cudaError_t)
-    result."""
+def load(name: str, entries: Dict[str, list]) -> ctypes.CDLL:
+    """The kernel library ``name``, built if needed, with each entry point
+    of ``entries`` (symbol -> ctypes argtypes) bound to its argtypes and an
+    int (cudaError_t) result."""
     if name not in _libs:
         lib = ctypes.CDLL(build(name).path)
-        fn = getattr(lib, f"pcs_{name}")
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
+        for symbol, argtypes in entries.items():
+            fn = getattr(lib, symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
         _libs[name] = lib
     return _libs[name]

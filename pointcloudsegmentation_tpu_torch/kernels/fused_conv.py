@@ -166,7 +166,8 @@ def fused_window_conv_fwd(fpx: torch.Tensor, cen: torch.Tensor,
         raise ValueError("fused_window_conv_fwd needs contiguous inputs")
     n, k = lidx.shape
     out = torch.empty((n, dims[-1]), dtype=fpx.dtype, device=fpx.device)
-    lib = _build.load("fused_window_conv", _ARGTYPES)
+    lib = _build.load("fused_window_conv",
+                      {"pcs_fused_window_conv": _ARGTYPES})
     ptrs = (ctypes.c_void_p * MAX_LAYERS)(*[w.data_ptr() for w in whids])
     cdims = (ctypes.c_int * MAX_LAYERS)(*dims)
     with torch.cuda.device(fpx.device):

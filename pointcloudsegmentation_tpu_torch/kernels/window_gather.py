@@ -14,20 +14,22 @@ K2 forward, K3 then the overlap-add of the slabs into point rows backward.
 On CUDA tensors ``gather_fwd`` and ``dslab_bwd`` launch the kernels in
 ``csrc/window_gather.cu`` and ``csrc/window_dslab.cu`` (built with nvcc for
 sm_90a at first use into ``_build/`` by ``kernels/_build.py`` and bound
-through ctypes) and raise if the build or the launch fails; on CPU tensors
+through ctypes) and raise if the build or a launch fails; on CPU tensors
 they run their plain versions.
 K2 is a byte copy and matches its plain version exactly for every dtype.
-K3 takes float32 or bfloat16 g, sums in float32 in ascending slot order
-without float atomics, so it is bitwise repeatable, and rounds once to g's
-dtype.  K2 is bounded by memory, K3 by its index work; the design notes
-are at the top of each CUDA source.  The raw entry
-points refuse tensors that require grad: a differentiable gather goes
-through ``WindowGather``.
+K3 is two launches: ``dslab_map`` builds each tile's stable inverse map
+(slab row -> the slots that read it, ascending), then a sum kernel adds
+each row's slots of float32 or bfloat16 g in float32 in that order,
+without float atomics, so it is bitwise repeatable and equal to its plain
+version, and rounds once to g's dtype.  Both kernels are bounded by
+memory; the design notes are at the top of each CUDA source.  The raw
+entry points refuse tensors that require grad: a differentiable gather
+goes through ``WindowGather``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -35,17 +37,22 @@ from torch.autograd.function import once_differentiable
 from . import _build
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
-_ARGTYPES = {
-    # feats, lidx, out, n, k, row_bytes, tile, window, stream
-    "window_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # g, lidx, dslab, n, k, f, tile, window, dtype, stream
-    "window_dslab": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+_ENTRIES = {
+    "window_gather": {
+        # feats, lidx, out, n, k, row_bytes, tile, window, stream
+        "pcs_window_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "window_dslab": {
+        # lidx, start, order, n, k, tile, window, stream
+        "pcs_window_dslab_map": [_P, _P, _P, _I, _I, _I, _I, _P],
+        # g, start, order, dslab, n, k, f, tile, window, dtype, stream
+        "pcs_window_dslab_sum": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _P]},
 }
 _DTYPE_CODES: Dict[torch.dtype, int] = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _load(name: str) -> ctypes.CDLL:
-    return _build.load(name, _ARGTYPES[name])
+    return _build.load(name, _ENTRIES[name])
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -88,6 +95,26 @@ def dslab_bwd_reference(g: torch.Tensor, lidx: torch.Tensor, window: int,
     out = torch.segment_reduce(rows, "sum", lengths=lengths, axis=0,
                                unsafe=True)
     return out[:nt * s].reshape(nt, s, f).to(g.dtype)
+
+
+def dslab_map_reference(lidx: torch.Tensor, window: int,
+                        tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3's inverse map: per tile, a stable sort
+    of the tile-local slot ids by slab row, indices outside [0, S) last.
+    [N, K] -> (start [N/T, S+1], order [N/T, T*K]), both int32:
+    ``order[t, start[t, r]:start[t, r+1]]`` are the slots of tile t that
+    read slab row r, ascending, and ``order[t, start[t, S]:]`` those whose
+    index lies outside the slab."""
+    n, k = lidx.shape
+    s = tile + 2 * window
+    lid = lidx.reshape(n // tile, tile * k).long()
+    row = torch.where((lid >= 0) & (lid < s), lid, torch.full_like(lid, s))
+    order = torch.sort(row, dim=1, stable=True).indices
+    counts = torch.zeros((n // tile, s + 1), dtype=torch.long,
+                         device=lidx.device)
+    counts.scatter_add_(1, row, torch.ones_like(row))
+    start = torch.cumsum(counts, dim=1) - counts
+    return start.to(torch.int32), order.to(torch.int32)
 
 
 def _check(x: torch.Tensor, lidx: torch.Tensor, window: int, tile: int,
@@ -159,16 +186,39 @@ def _dslab(g: torch.Tensor, lidx: torch.Tensor, window: int,
         return out
     if k == 0:
         return out.zero_()
-    lib = _load("window_dslab")
+    start, order = _map(lidx, window, tile)
     with torch.cuda.device(g.device):
-        err = lib.pcs_window_dslab(
-            g.data_ptr(), lidx.data_ptr(), out.data_ptr(), n, k, f, tile,
-            window, _DTYPE_CODES[g.dtype], _stream(g))
+        err = _load("window_dslab").pcs_window_dslab_sum(
+            g.data_ptr(), start.data_ptr(), order.data_ptr(), out.data_ptr(),
+            n, k, f, tile, window, _DTYPE_CODES[g.dtype], _stream(g))
     if err != 0:
-        raise RuntimeError(f"window-dslab kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"window-dslab sum kernel launch failed: CUDA "
+                           f"error {err}")
     dslab_bwd.launches += 1
     return out
+
+
+def _map(lidx: torch.Tensor, window: int,
+         tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    if not lidx.is_contiguous():
+        raise ValueError("dslab_map needs a contiguous lidx")
+    n, k = lidx.shape
+    s = tile + 2 * window
+    start = torch.empty((n // tile, s + 1), dtype=torch.int32,
+                        device=lidx.device)
+    order = torch.empty((n // tile, tile * k), dtype=torch.int32,
+                        device=lidx.device)
+    if n == 0 or k == 0:
+        return start.zero_(), order
+    with torch.cuda.device(lidx.device):
+        err = _load("window_dslab").pcs_window_dslab_map(
+            lidx.data_ptr(), start.data_ptr(), order.data_ptr(), n, k, tile,
+            window, _stream(lidx))
+    if err != 0:
+        raise RuntimeError(f"window-dslab map kernel launch failed: CUDA "
+                           f"error {err}")
+    dslab_map.launches += 1
+    return start, order
 
 
 def gather_fwd(feats: torch.Tensor, lidx: torch.Tensor, window: int,
@@ -187,15 +237,31 @@ def dslab_bwd(g: torch.Tensor, lidx: torch.Tensor, window: int,
     """K3: [N, K, F] slot gradients, [N, K] int32 slab-local indices ->
     [N/T, S, F] slab gradients (the caller overlap-adds them).
 
-    CUDA tensors run the hand-written kernel; CPU tensors the plain version.
-    ``dslab_bwd.launches`` counts kernel launches (those made inside
-    ``WindowGather`` included)."""
+    CUDA tensors run the map kernel (``dslab_map``) then the sum kernel;
+    CPU tensors the plain version.  ``dslab_bwd.launches`` counts calls
+    that launched both (those made inside ``WindowGather`` included)."""
     _refuse_grad(g, "dslab_bwd")
     return _dslab(g, lidx, window, tile)
 
 
+def dslab_map(lidx: torch.Tensor, window: int,
+              tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's inverse map: [N, K] int32 slab-local indices -> (start
+    [N/T, S+1], order [N/T, T*K]) int32, as ``dslab_map_reference``
+    defines them.
+
+    CUDA tensors run the map kernel; CPU tensors the plain version.
+    ``dslab_map.launches`` counts its launches (those made inside
+    ``dslab_bwd`` included)."""
+    _check(lidx, lidx, window, tile, "lidx")
+    if lidx.device.type == "cpu":
+        return dslab_map_reference(lidx, window, tile)
+    return _map(lidx, window, tile)
+
+
 gather_fwd.launches = 0
 dslab_bwd.launches = 0
+dslab_map.launches = 0
 
 
 def overlap_add(dslab: torch.Tensor, n: int, window: int,

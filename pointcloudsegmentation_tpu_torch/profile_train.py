@@ -31,8 +31,10 @@ BLOCKS = 4
 POINTS = 8192
 STEPS = 3                  # training steps under the profiler
 TOP = 15                   # kernels listed by device time
-# the port's own kernels, by a substring of their symbol names
-OWN_KERNELS = ("window_gather_kernel", "window_dslab_kernel")
+# the port's own kernels, by a substring of their symbol names: K2, and
+# K3's two launches (its map, then its sums)
+OWN_KERNELS = ("window_gather_kernel", "window_dslab_map_kernel",
+               "window_dslab_sum_kernel")
 
 
 def _device_us(e) -> float:

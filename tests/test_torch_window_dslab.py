@@ -55,7 +55,13 @@ def _lidx(rng, k, out_of_range=True):
 @pytest.mark.parametrize("f,k,dtype", [(64, 8, "bfloat16"),
                                        (96, 6, "bfloat16"),
                                        (16, 12, "float32"),
-                                       (8, 32, "float32")])
+                                       (8, 32, "float32"),
+                                       # the flagship's widths
+                                       (96, 24, "bfloat16"),
+                                       (96, 32, "bfloat16"),
+                                       (128, 24, "bfloat16"),
+                                       (128, 32, "bfloat16"),
+                                       (4, 32, "float32")])
 def test_reference_matches_pallas_dslab(f, k, dtype):
     rng = np.random.RandomState(f * k)
     lidx = _lidx(rng, k)
@@ -73,6 +79,70 @@ def test_reference_matches_pallas_dslab(f, k, dtype):
     before = wg.dslab_bwd.launches
     assert torch.equal(wg.dslab_bwd(tg, tl, W, T), got)
     assert wg.dslab_bwd.launches == before
+
+
+def _numpy_map(lidx, window, tile):
+    """(start, order) from numpy's stable argsort of each tile's slots by
+    slab row, indices outside [0, S) dropped: the in-range prefix of the
+    map and the bucket starts."""
+    s = tile + 2 * window
+    nt = lidx.shape[0] // tile
+    rows = lidx.reshape(nt, -1)
+    starts, orders = [], []
+    for r in rows:
+        keep = np.flatnonzero((r >= 0) & (r < s))
+        orders.append(keep[np.argsort(r[keep], kind="stable")])
+        counts = np.bincount(r[keep], minlength=s)
+        starts.append(np.concatenate([[0], np.cumsum(counts)]))
+    return np.stack(starts), orders
+
+
+@pytest.mark.parametrize("k,out_of_range", [(8, True), (32, True),
+                                            (24, False)])
+def test_dslab_map_reference_matches_numpy(k, out_of_range):
+    """The inverse map's plain version: per tile, the slots of each slab
+    row in ascending order (numpy's stable argsort by row), the slots that
+    read outside the slab after start[S], ascending."""
+    rng = np.random.RandomState(k)
+    lidx = _lidx(rng, k, out_of_range)
+    start, order = wg.dslab_map_reference(torch.from_numpy(lidx), W, T)
+    assert start.dtype == order.dtype == torch.int32
+    assert start.shape == (N // T, S + 1) and order.shape == (N // T, T * k)
+    want_start, want_order = _numpy_map(lidx, W, T)
+    np.testing.assert_array_equal(start.numpy(), want_start)
+    rows = lidx.reshape(N // T, -1)
+    for t in range(N // T):
+        inside = int(start[t, S])
+        np.testing.assert_array_equal(order[t, :inside].numpy(), want_order[t])
+        rest = order[t, inside:].numpy()
+        np.testing.assert_array_equal(
+            rest, np.flatnonzero((rows[t] < 0) | (rows[t] >= S)))
+    # the wrapper runs the plain version on a CPU tensor, launches nothing
+    before = wg.dslab_map.launches
+    got = wg.dslab_map(torch.from_numpy(lidx), W, T)
+    assert torch.equal(got[0], start) and torch.equal(got[1], order)
+    assert wg.dslab_map.launches == before
+
+
+def test_dslab_map_gives_the_plain_sums():
+    """Summing each bucket's g rows in the map's order gives the plain
+    version's slab gradient exactly, in float32 and bfloat16: the sum
+    kernel's contract."""
+    rng = np.random.RandomState(4)
+    lidx = _lidx(rng, 16)
+    start, order = wg.dslab_map_reference(torch.from_numpy(lidx), W, T)
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.from_numpy(rng.randn(N, 16, 8).astype(np.float32)).to(dtype)
+        gt = g.reshape(N // T, T * 16, 8).float()
+        want = wg.dslab_bwd_reference(g, torch.from_numpy(lidx), W, T)
+        got = torch.zeros(N // T, S, 8)
+        for t in range(N // T):
+            for r in range(S):
+                acc = torch.zeros(8)
+                for i in order[t, start[t, r]:start[t, r + 1]].tolist():
+                    acc = acc + gt[t, i]
+                got[t, r] = acc
+        assert torch.equal(got.to(dtype), want)
 
 
 def test_dslab_bwd_rejects_bad_input():

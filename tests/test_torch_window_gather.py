@@ -26,7 +26,12 @@ S = T + 2 * W
 
 @pytest.mark.parametrize("f,k,dtype", [(64, 8, "bfloat16"),
                                        (96, 4, "bfloat16"),
-                                       (4, 32, "float32")])
+                                       (4, 32, "float32"),
+                                       # the flagship's level-1 and -2 widths
+                                       (96, 24, "bfloat16"),
+                                       (96, 32, "bfloat16"),
+                                       (128, 24, "bfloat16"),
+                                       (128, 32, "bfloat16")])
 def test_reference_matches_pallas_gather(f, k, dtype):
     rng = np.random.RandomState(f + k)
     feats = rng.randn(N, f).astype(np.float32)
