@@ -41,10 +41,15 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    1 at full width: its timed arms and its fused-vs-unfused cross-check
    (within 2^-6 of the largest output), exactly one fused window-conv
    launch per fused call, and the kernel against its plain version in bf16
-   at both levels, in float32 at level 0, and in bf16 at level 0 with a
-   window of 96 rows, no multiple of the tile (two runs bitwise equal,
-   float32 within 1e-5 of each output's sum of magnitudes, bf16 within 2
-   bf16 ulps of the largest activation), timed beside its bound.
+   at both levels, in float32 at level 0, in bf16 at level 0 with a
+   window of 96 rows, no multiple of the tile, and in bf16 on seeded random
+   inputs at the flagship's other conv shapes (K=24 with dims 16,16,16,48,
+   K=16 with dims 8,8,16,32), at K=8 with dims 4,4,8 (widths under 8), at
+   odd widths 3,5,7 and at wide ones 32,32,64,128 (a slab longer than
+   shared memory holds):
+   two runs bitwise equal, the same points without a valid slot, float32
+   within 1e-5 of each output's sum of magnitudes, bf16 within 2 bf16 ulps
+   of the largest activation; timed beside its bound.
 
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
@@ -71,6 +76,14 @@ K1_F32_RTOL = 1e-5          # fused conv vs plain, of the sum of magnitudes
 K1_BF16_ULPS = 2            # fused conv vs plain, of the largest activation
 FUSED_VS_UNFUSED_REL = 2.0 ** -6   # bench cross-check, of the largest output
 ARM_ITERS = 20              # timed calls of each bench arm
+# K1 on seeded random inputs, bf16, tile 256: (N, K, dims, window).  The
+# flagship's other conv shapes and the tests' widths under 8 take the
+# kernel's compile-time geometry; odd widths (with a window that leaves the
+# last slab range unaligned for the TMA) and wide ones (a slab too long for
+# shared memory, read from L2) take its table-driven geometry.
+K1_CASES = ((4096, 24, (16, 16, 16, 48), 256), (8192, 16, (8, 8, 16, 32), 256),
+            (2048, 8, (4, 4, 8), 256), (2048, 20, (3, 5, 7), 253),
+            (1024, 16, (32, 32, 64, 128), 256))
 # the card's peaks (H100 SXM data sheet, dense) and memory rate
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -764,6 +777,39 @@ def rewindow(args, window):
     return fpx, cen, xyzc, lidx, wsx, whids, window, tile, dims
 
 
+def k1_inputs(n, tile, k, dims, window, seed):
+    """K1's bf16 arguments on the card from a seeded numpy generator: a
+    zero-padded [nbr_proj | hi | mid] stream, centre projections,
+    coordinates in a 3 m block, slab-local indices with a fifth of the
+    slots invalid, every 7th point without a valid slot and a few indices
+    past the slab (zero rows), and weights of unit scale."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    s = tile + 2 * window
+    sumd = sum(dims)
+    offs = np.cumsum((0,) + tuple(dims))
+    xyz = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    hi = torch.from_numpy(xyz).bfloat16().float().numpy()
+    fp = np.concatenate([rng.randn(n, sumd).astype(np.float32), hi,
+                         xyz - hi], -1)
+    fpx = np.pad(fp, ((window, window), (0, 0)))
+    cen = rng.randn(n, sumd).astype(np.float32)
+    xyzc = np.concatenate([xyz, np.zeros((n, 1), np.float32)], -1)
+    lidx = rng.randint(0, s, (n, k)).astype(np.int32)
+    lidx[rng.rand(n, k) < 0.2] = -1
+    lidx[::7] = -1
+    lidx[1::5, 0] = s + 3
+    wsx = (rng.randn(3, sumd) / np.sqrt(3)).astype(np.float32)
+    whids = [(rng.randn(offs[i], dims[i]) / np.sqrt(offs[i]))
+             .astype(np.float32) for i in range(1, len(dims))]
+    dev = lambda a: torch.from_numpy(a).cuda().bfloat16()  # noqa: E731
+    return (dev(fpx), dev(cen), torch.from_numpy(xyzc).cuda(),
+            torch.from_numpy(lidx).cuda(), dev(wsx),
+            tuple(dev(w) for w in whids), window, tile, tuple(dims))
+
+
 def phase_fused_conv(card):
     """The fused-conv bench at levels 0 and 1 (full width), then K1 against
     its plain version on each level's inputs."""
@@ -803,6 +849,11 @@ def phase_fused_conv(card):
                     b, torch.float32)(), card, what))
                 rows.append(k1_check(fc, rewindow(bench.fused_arm(b)(), 96),
                                      card, f"{what} W=96"))
+    with torch.no_grad():
+        for seed, (n, k, dims, window) in enumerate(K1_CASES):
+            rows.append(k1_check(fc, k1_inputs(n, 256, k, dims, window, seed),
+                                 card, f"random N={n} K={k} dims={dims} "
+                                 f"W={window}"))
     return rows, launches
 
 

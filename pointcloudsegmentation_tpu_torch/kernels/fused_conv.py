@@ -24,9 +24,13 @@ fused_window_conv.cu`` (nvcc, sm_90a, built at first use into ``_build/``,
 bound through ctypes) and raises if the build or the launch fails; on CPU
 tensors it runs the plain version ``fused_window_conv_reference``.  There
 is no backward (the JAX package has none): the entry point refuses inputs
-that require grad.  Kernel and plain version sum the products in different
-orders, so they agree to float32 rounding, and in bfloat16 up to the
-hidden states' roundings that this moves across a rounding boundary.
+that require grad.  In bfloat16 the kernel runs 16 slots at a time through
+the tensor cores (``mma.sync``), which takes each layer's hidden and output
+widths in tiles of 8 columns: at most ``MAX_TILES`` tiles of hidden state
+(all layers but the last) and of output, and ``fpx`` and ``cen`` 4-byte
+aligned.  Kernel and plain version sum the products in different orders,
+so they agree to float32 rounding, and in bfloat16 up to the hidden
+states' roundings that this moves across a rounding boundary.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from . import _build
 
 NEG = -1e30
 MAX_LAYERS = 8                 # csrc/fused_window_conv.cu's kMaxLayers
+MAX_TILES = 16                 # ... and its kMaxTiles (8 columns a tile)
 _I, _P = ctypes.c_int, ctypes.c_void_p
 # fpx, cen, xyzc, lidx, wsx, whids (host array of pointers), out, dims
 # (host int array), n_layers, n, k, tile, window, dtype, stream
@@ -139,6 +144,25 @@ def _check(fpx, cen, xyzc, lidx, wsx, whids, window, tile, dims) -> None:
         raise ValueError(f"unsupported device {lidx.device}")
 
 
+def _check_kernel(fpx: torch.Tensor, cen: torch.Tensor,
+                  dims: Sequence[int]) -> None:
+    """What the bfloat16 kernel takes beyond the plain version: at most
+    ``MAX_TILES`` tiles of 8 columns of hidden state and of output, and
+    ``fpx`` and ``cen`` 4-byte aligned (their column pairs load as one
+    word)."""
+    if fpx.dtype != torch.bfloat16:
+        return
+    tiles = [-(-d // 8) for d in dims]
+    if sum(tiles[:-1]) > MAX_TILES or tiles[-1] > MAX_TILES:
+        raise ValueError(f"the bfloat16 kernel takes at most {MAX_TILES} "
+                         f"tiles of 8 columns of hidden state and of output, "
+                         f"got dims {tuple(dims)}")
+    for name, x in (("fpx", fpx), ("cen", cen)):
+        if x.data_ptr() % 4:
+            raise ValueError(f"the bfloat16 kernel needs {name} 4-byte "
+                             f"aligned")
+
+
 def fused_window_conv_fwd(fpx: torch.Tensor, cen: torch.Tensor,
                           xyzc: torch.Tensor, lidx: torch.Tensor,
                           wsx: torch.Tensor, whids: Sequence[torch.Tensor],
@@ -164,6 +188,7 @@ def fused_window_conv_fwd(fpx: torch.Tensor, cen: torch.Tensor,
     tensors = (fpx, cen, xyzc, lidx, wsx) + whids
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("fused_window_conv_fwd needs contiguous inputs")
+    _check_kernel(fpx, cen, dims)
     n, k = lidx.shape
     out = torch.empty((n, dims[-1]), dtype=fpx.dtype, device=fpx.device)
     lib = _build.load("fused_window_conv",

@@ -32,19 +32,23 @@ torch.set_num_threads(1)
 CASES = [  # n, tile (= window), k, dims
     (512, 64, 8, (4, 4, 8)),
     (1024, 128, 8, (8, 8, 16, 32)),
+    (512, 64, 24, (16, 16, 16, 48)),    # a level-1 conv of the flagship
 ]
 F32_REL = 1e-5
 BF16_REL = 2.0 ** -6        # 2 to 4 bf16 ulps of the largest |out|
 
 
 def k1_inputs(n, tile, k, dims, dtype, seed=0, out_of_slab=False,
-              window=None):
+              window=None, prefix=False):
     """Numpy inputs of one K1 call: a zero-padded [nbr_proj ‖ hi ‖ mid]
     stream, centre projections, coordinates in a 3 m block, slab-local
     indices with a fifth of the slots invalid (and, with ``out_of_slab``,
     a few indices past the slab, which read a zero row), and weights of
     unit scale (normal, divided by the square root of the fan-in).  The
-    window is the tile unless ``window`` is given."""
+    window is the tile unless ``window`` is given.  With ``prefix`` each
+    point's valid slots are a prefix of its row of any length from 0 to K,
+    as the search's band compaction leaves them, so whole 16-slot groups
+    are empty."""
     rng = np.random.RandomState(seed)
     window = tile if window is None else window
     s = tile + 2 * window
@@ -64,6 +68,11 @@ def k1_inputs(n, tile, k, dims, dtype, seed=0, out_of_slab=False,
     lidx = rng.randint(0, s, (n, k)).astype(np.int32)
     lidx[rng.rand(n, k) < 0.2] = -1
     lidx[::7] = -1                          # points with no valid slot
+    if prefix:
+        count = rng.randint(0, k + 1, n)
+        count[::7] = 0
+        lidx = np.where(np.arange(k)[None, :] < count[:, None], lidx % s,
+                        -1).astype(np.int32)
     if out_of_slab:
         lidx[1::5, 0] = s + 3
     wsx = (rng.randn(3, sumd) / np.sqrt(3)).astype(np.float32)
@@ -138,6 +147,47 @@ def test_reference_matches_pallas_kernel_any_window(dtype):
     want = _f32(jk1.fused_window_conv_fwd(*_jax(np_args, dtype)))
     got = k1.fused_window_conv_fwd(*_torch(np_args, dtype))
     _close(_f32(got), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reference_matches_pallas_kernel_prefix_slots(dtype):
+    """Valid slots a prefix of each row, whole 16-slot groups empty (the
+    groups the card's bf16 kernel skips): the port's plain version agrees
+    with the Pallas kernel, and a point with no valid slot gives -1e30."""
+    np_args = k1_inputs(512, 64, 32, (8, 8, 16, 32), dtype, seed=3,
+                        prefix=True)
+    lidx = np_args[3]
+    valid = lidx >= 0
+    assert (np.diff(valid.astype(int), axis=1) <= 0).all()
+    assert (~valid[:, 16:].any(1)).mean() > 0.3
+    want = _f32(jk1.fused_window_conv_fwd(*_jax(np_args, dtype)))
+    got = _f32(k1.fused_window_conv_fwd(*_torch(np_args, dtype)))
+    _close(got, want, dtype)
+    assert (got[~valid.any(1)] <= -1e29).all()
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("hidden", "tiles of 8 columns"),
+    ("output", "tiles of 8 columns"),
+    ("fpx", "fpx 4-byte aligned"),
+    ("cen", "cen 4-byte aligned"),
+])
+def test_kernel_check_refuses_what_the_bf16_kernel_cannot_take(bad, match):
+    """The checks the CUDA path adds for the bf16 kernel: at most 16 tiles
+    of 8 columns of hidden state and of output, fpx and cen 4-byte aligned;
+    float32 and in-range bf16 inputs pass."""
+    fpx = torch.zeros(64, 2, dtype=torch.bfloat16)
+    cen = torch.zeros(64, 2, dtype=torch.bfloat16)
+    dims = {"hidden": (64, 72, 8), "output": (8, 136)}.get(bad, (8, 8))
+    if bad == "fpx":
+        fpx = fpx.reshape(-1)[1:]
+    if bad == "cen":
+        cen = cen.reshape(-1)[1:]
+    with pytest.raises(ValueError, match=match):
+        k1._check_kernel(fpx, cen, dims)
+    k1._check_kernel(fpx.float(), cen.float(), dims)
+    k1._check_kernel(torch.zeros(4, dtype=torch.bfloat16),
+                     torch.zeros(4, dtype=torch.bfloat16), (64, 64, 128))
 
 
 def test_fused_conv_refuses_grad_and_bad_input():
