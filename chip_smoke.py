@@ -49,7 +49,19 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    shared memory holds):
    two runs bitwise equal, the same points without a valid slot, float32
    within 1e-5 of each output's sum of magnitudes, bf16 within 2 bf16 ulps
-   of the largest activation; timed beside its bound.
+   of the largest activation; timed beside its bound;
+9. entry points: the user's commands at full width, each path's kernel
+   launches counted per block.  (a) The train CLI
+   (``train.cli.main``) trains the flagship on synthetic blocks, 3 steps
+   of 4 blocks of 8192 points, with its test epoch: the metrics record has
+   the JAX CLI's keys and a finite loss, a checkpoint is written, and
+   ``--restore --eval`` gives the epoch's test metrics bit for bit.
+   (b) The scene eval (``interpolate.main``) restores that checkpoint and
+   labels a synthetic room prepared by ``s3dis.prepare_room`` into a scene
+   pkl: finite probabilities whose rows sum to 1, an mIoU in [0, 1].
+   (c) The train CLI trains ``pointnet_scannet`` (xyz-only first conv,
+   which gathers nothing) for 3 steps with a finite loss, and its float32
+   logits on one block agree with the CPU's argmax.
 
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
@@ -70,6 +82,9 @@ TRAIN_BLOCKS = 4            # blocks per training step (bench.py's batch)
 PARITY_NBR_MIN = 0.999      # share of valid neighbor slots equal, card vs CPU
 PARITY_ARGMAX_MIN = 0.99    # share of points with equal logit argmax
 PROB_SUM_TOL = 1e-3
+CLI_STEPS = 3               # phase 9: train and test steps of each CLI run
+METRICS_KEYS = {"epoch", "train_loss", "lr", "miou", "oiou", "oacc", "iou",
+                "acc", "points_per_sec"}   # the JAX CLI's epoch record
 DSLAB_F32_RTOL = 1e-6       # slab-gradient kernel vs plain, float32
 GRAD_COSINE_MIN = 0.999     # flat gradient, float32 card vs CPU
 K1_F32_RTOL = 1e-5          # fused conv vs plain, of the sum of magnitudes
@@ -166,6 +181,8 @@ def gather_shapes(model, cfg):
         ck = search.effective_win_cand_k(WIN_CAND_K, CAND_K, bands, n)
         shapes.append((f"L{s} search xyzm", n, ck, 4, torch.float32))
         for c in stage.convs:
+            if c.nofeats:       # xyz-only: gathers no features
+                continue
             f = sum(c.fc_dims) + c.out
             shapes.append((f"L{s} conv", n, c.k, f,
                            enc.dtype or torch.float32))
@@ -857,6 +874,193 @@ def phase_fused_conv(card):
     return rows, launches
 
 
+def reset_counts():
+    from pointcloudsegmentation_tpu_torch.kernels import window_gather as wg
+
+    wg.gather_fwd.launches = wg.dslab_bwd.launches = 0
+    wg.dslab_map.launches = 0
+
+
+def read_counts():
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.kernels import window_gather as wg
+
+    torch.cuda.synchronize()
+    return {"window_gather": wg.gather_fwd.launches,
+            "window_dslab": wg.dslab_bwd.launches,
+            "window_dslab_map": wg.dslab_map.launches}
+
+
+def run_path(what, fn, expect):
+    """Run one entry point with the kernel counts set to 0 just before and
+    read just after, and check them against ``expect`` (kernel ->
+    launches).  Returns (fn's result, counts, seconds)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    counts = read_counts()
+    seconds = time.perf_counter() - t0
+    log(f"[entry] {what}: {seconds:.2f} s; launches "
+        + ", ".join(f"{k} {v} (expected {expect.get(k, 0)})"
+                    for k, v in counts.items()))
+    for k, v in counts.items():
+        check(v == expect.get(k, 0), f"{what}: {k} launched {v} times, "
+              f"expected {expect.get(k, 0)}")
+    return out, counts, seconds
+
+
+def read_records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_entry_points(card):
+    """9: the train CLI, the scene eval and ``pointnet_scannet`` at full
+    width on the card, each with its own launch counts."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pointcloudsegmentation_tpu_torch import interpolate
+    from pointcloudsegmentation_tpu_torch.config import (s3dis_config,
+                                                         scannet_config)
+    from pointcloudsegmentation_tpu_torch.data import s3dis, synth_rooms, toy
+    from pointcloudsegmentation_tpu_torch.train import cli
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    def per_block(cfg):
+        """Launches per block of a forward and of a training step."""
+        model = build_model(cfg, None, "cpu")
+        convs = sum(not c.nofeats for st in model.encoder.arch.stages
+                    for c in st.convs)
+        gathers = len(gather_shapes(model, cfg))
+        return ({"window_gather": gathers},
+                {"window_gather": gathers, "window_dslab": convs,
+                 "window_dslab_map": convs})
+
+    def times(counts, n):
+        return {k: v * n for k, v in counts.items()}
+
+    def plus(a, b):
+        return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+    total = {"window_gather": 0, "window_dslab": 0, "window_dslab_map": 0}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # (a) the train CLI on the flagship, then --restore --eval
+        ck = os.path.join(tmp, "ck")
+        base = ["--config", "s3dis", "--synthetic", "--steps-per-epoch",
+                str(CLI_STEPS), "--batch-size", str(TRAIN_BLOCKS),
+                "--num-points", str(N_POINTS), "--checkpoint-dir", ck]
+        fwd, step = per_block(s3dis_config(data_num_points=N_POINTS))
+        blocks = CLI_STEPS * TRAIN_BLOCKS
+        log(f"[entry] flagship launches per block: {fwd} forward, {step} "
+            f"training step")
+        _, counts, secs = run_path(
+            f"train CLI s3dis ({CLI_STEPS} train + {CLI_STEPS} test steps "
+            f"of {TRAIN_BLOCKS} x {N_POINTS} points)",
+            lambda: cli.main(base + ["--epochs", "1", "--metrics-file",
+                                     os.path.join(tmp, "train.jsonl")]),
+            plus(times(step, blocks), times(fwd, blocks)))
+        total = {k: total[k] + counts[k] for k in total}
+        rec, = read_records(os.path.join(tmp, "train.jsonl"))
+        check(set(rec) == METRICS_KEYS, f"metrics record keys {sorted(rec)}")
+        check(math.isfinite(rec["train_loss"]), f"train loss {rec}")
+        check(os.path.exists(os.path.join(ck, "epoch_000000.pt")),
+              "no checkpoint written")
+        log(f"[entry] train CLI: epoch record train_loss "
+            f"{rec['train_loss']:.5f}, lr {rec['lr']:g}, test mIoU "
+            f"{rec['miou']:.6f}, oAcc {rec['oacc']:.6f}, "
+            f"{rec['points_per_sec']:.1f} train points/s (host-bound, not a "
+            f"benchmark) [{card}]; checkpoint written")
+        res, counts, secs = run_path(
+            f"train CLI --restore --eval ({CLI_STEPS} test steps)",
+            lambda: cli.main(base + ["--restore", "--eval", "--metrics-file",
+                                     os.path.join(tmp, "eval.jsonl")]),
+            times(fwd, blocks))
+        total = {k: total[k] + counts[k] for k in total}
+        ev, = read_records(os.path.join(tmp, "eval.jsonl"))
+        for key in ("miou", "oiou", "oacc", "iou", "acc"):
+            check(ev[key] == rec[key], f"--restore --eval {key} {ev[key]} "
+                  f"differs from the epoch's {rec[key]}")
+        log(f"[entry] --restore --eval: mIoU {ev['miou']!r}, oAcc "
+            f"{ev['oacc']!r}: bit for bit the epoch's test metrics")
+
+        # (b) the scene eval on a prepared room, with that checkpoint
+        scenes = os.path.join(tmp, "scenes")
+        points, labels = synth_rooms.synthetic_s3dis_room(
+            np.random.RandomState(0))
+        prep = s3dis.prepare_room(points, labels,
+                                  rng=np.random.RandomState(0))
+        s3dis.save_pkl(os.path.join(scenes, "room0.pkl"), prep)
+        nblk = len(prep["xyzs"])
+        out, counts, secs = run_path(
+            f"scene eval (a prepared room: {len(points)} points, {nblk} "
+            f"blocks)",
+            lambda: interpolate.main([
+                "--config", "s3dis", "--checkpoint-dir", ck, "--scene-dir",
+                scenes, "--out-dir", os.path.join(tmp, "out")]),
+            times(fwd, nblk))
+        total = {k: total[k] + counts[k] for k in total}
+        r, = out
+        dev = float(np.abs(r["probs"].sum(1) - 1.0).max())
+        check(np.isfinite(r["probs"]).all(), "scene probs not finite")
+        check(dev <= PROB_SUM_TOL, f"scene probs rows sum to 1 +- {dev}")
+        check(0.0 <= r["res"]["miou"] <= 1.0, f"scene mIoU {r['res']}")
+        log(f"[entry] scene eval: {r['points']} dense points labelled in "
+            f"{r['seconds']:.3f} s (sweep + interpolation; {secs:.2f} s with "
+            f"restore and prep), probs rows sum to 1 +- {dev:.2e}, mIoU "
+            f"{r['res']['miou']:.4f}, oAcc {r['res']['oacc']:.4f} [{card}]")
+
+        # (c) pointnet_scannet through the train CLI
+        sfwd, sstep = per_block(scannet_config(data_num_points=N_POINTS))
+        log(f"[entry] pointnet_scannet launches per block: {sfwd} forward, "
+            f"{sstep} training step (its xyz-only first conv gathers "
+            f"nothing)")
+        _, counts, secs = run_path(
+            f"train CLI scannet ({CLI_STEPS} train + {CLI_STEPS} test steps "
+            f"of {TRAIN_BLOCKS} x {N_POINTS} points)",
+            lambda: cli.main([
+                "--config", "scannet", "--synthetic", "--epochs", "1",
+                "--steps-per-epoch", str(CLI_STEPS), "--batch-size",
+                str(TRAIN_BLOCKS), "--num-points", str(N_POINTS),
+                "--metrics-file", os.path.join(tmp, "scannet.jsonl")]),
+            plus(times(sstep, blocks), times(sfwd, blocks)))
+        total = {k: total[k] + counts[k] for k in total}
+        srec, = read_records(os.path.join(tmp, "scannet.jsonl"))
+        check(math.isfinite(srec["train_loss"]),
+              f"scannet train loss {srec}")
+        log(f"[entry] pointnet_scannet: train loss {srec['train_loss']:.5f}"
+            f", test mIoU {srec['miou']:.4f}, {srec['points_per_sec']:.1f} "
+            f"train points/s (host-bound) [{card}]")
+        f32 = scannet_config(compute_dtype="float32")
+        b = toy.synthetic_room_block(np.random.RandomState(0), N_POINTS, 20,
+                                     1)
+        logits = {}
+        for devname in ("cuda", "cpu"):
+            m = build_model(f32, torch.Generator().manual_seed(0), devname)
+            with torch.inference_mode():
+                logits[devname] = m(
+                    torch.from_numpy(b["xyz"]).to(devname),
+                    torch.from_numpy(b["feats"]).to(devname),
+                    torch.ones(N_POINTS, dtype=torch.bool,
+                               device=devname)).cpu()
+        agree = float((logits["cuda"].argmax(1) == logits["cpu"].argmax(1))
+                      .double().mean())
+        log(f"[entry] pointnet_scannet float32 logits card vs CPU: argmax "
+            f"agreement {agree:.6f} (need >= {PARITY_ARGMAX_MIN}), max |d| "
+            f"{(logits['cuda'] - logits['cpu']).abs().max():.3e} [{card}]")
+        check(agree >= PARITY_ARGMAX_MIN, f"scannet argmax agreement {agree}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -890,6 +1094,9 @@ def main() -> int:
     drows = phase_dslab(model, cfg, card)
     train_launches, train_pps, peak = phase_train(cfg, card)
     frows, fused_launches = phase_fused_conv(card)
+    t9 = time.perf_counter()
+    entry_launches = phase_entry_points(card)
+    log(f"[entry] phase 9 in {time.perf_counter() - t9:.1f} s")
 
     main_row = next(r for r in rows if r["name"].endswith("conv"))
     dmain, fmain = drows[0], frows[0]
@@ -900,7 +1107,8 @@ def main() -> int:
         f"{dmain['dtype']} (slab gradient: map and sum kernels; the map "
         f"alone in its own row) and {fmain['name']} "
         f"{fmain['dtype']} (fused conv); launches are the serve sweep's plus "
-        f"one training step's, and the fused-conv bench's; eval {pps:.1f} "
+        f"one training step's and the entry points', and the fused-conv "
+        f"bench's; eval {pps:.1f} "
         f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "
         f"GiB")
     timing = ("ms", "plain_ms", "bound_ms", "bound_by")
@@ -910,7 +1118,8 @@ def main() -> int:
         "source": "pointcloudsegmentation_tpu_torch/csrc/window_gather.cu",
         "replaces":
             "pointcloudsegmentation_tpu/ops/pallas/window_gather.py:95",
-        "launches": launches + train_launches["window_gather"],
+        "launches": launches + train_launches["window_gather"]
+        + entry_launches["window_gather"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "library_ms": main_row["library_ms"],
     }, **{key: main_row[key] for key in timing}), dict({
@@ -919,7 +1128,8 @@ def main() -> int:
         "source": "pointcloudsegmentation_tpu_torch/csrc/window_dslab.cu",
         "replaces":
             "pointcloudsegmentation_tpu/ops/pallas/window_gather.py:125",
-        "launches": train_launches["window_dslab"],
+        "launches": train_launches["window_dslab"]
+        + entry_launches["window_dslab"],
         "max_abs_err": max(r["max_abs_err"] for r in drows),
         "library_ms": dmain["library_ms"],
     }, **{key: dmain[key] for key in timing}), dict({
@@ -928,7 +1138,8 @@ def main() -> int:
         "source": "pointcloudsegmentation_tpu_torch/csrc/window_dslab.cu",
         "replaces":
             "pointcloudsegmentation_tpu/ops/pallas/window_gather.py:125",
-        "launches": train_launches["window_dslab_map"],
+        "launches": train_launches["window_dslab_map"]
+        + entry_launches["window_dslab_map"],
         "max_abs_err": 0.0,
         "library_ms": dmain["map"]["library_ms"],
     }, **{key: dmain["map"][key] for key in timing}), dict({

@@ -8,8 +8,8 @@ Rules the port keeps:
 
 - it imports ``torch`` and never JAX, and nothing of the JAX package, not
   even its numpy-only modules: the host code it needs is its own copy
-  (``data/toy.py``, ``data/batching.py``, and ``data/native.py``, which
-  builds the repository's ``csrc/pointutil.cpp`` into ``_build/``);
+  (``data/``, ``utils/logging.py``; ``data/native.py`` builds the
+  repository's ``csrc/pointutil.cpp`` into ``_build/``);
 - entry points run on the card (``device="cuda"``) unless the caller asks
   for the CPU; randomness comes from explicit ``torch.Generator``s, and the
   compute dtype is a constructor argument;
@@ -19,12 +19,15 @@ Rules the port keeps:
   (``kernels/window_gather.py``, ``kernels/fused_conv.py``) and as its
   plain PyTorch version on CPU tensors.
 
-Ported so far: the flagship ``pointnet_s3dis`` inference path (block sweep,
-softmax, dense interpolation), its training step (``train/loop.py``;
-``python -m pointcloudsegmentation_tpu_torch.profile_train`` profiles it on
-the card), and the fused window-conv kernel with its microbench
-(``python -m pointcloudsegmentation_tpu_torch.bench_fused_conv --level 0``).
-See ROADMAP.md for what is still to port.
+Ported so far: ``pointnet_s3dis`` (the flagship) and ``pointnet_scannet``
+with their inference path (block sweep, softmax, dense interpolation) and
+training step (``train/loop.py``), the data pipeline, and the user entry
+points: ``python -m pointcloudsegmentation_tpu_torch.train.cli`` trains and
+evaluates, ``... .interpolate`` labels prepared scenes, ``... .parity_ab``
+records a training curve on synthetic rooms, ``... .profile_train``
+profiles the training step on the card; plus the fused window-conv kernel
+with its microbench (``... .bench_fused_conv --level 0``).  See ROADMAP.md
+for what is still to port.
 """
 
 __version__ = "0.1.0"

@@ -36,9 +36,13 @@ class TrainConfig:
     model: str = "pointnet_s3dis"  # registry key (train.model_zoo)
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    batch_per_device: int = 1      # reference default --batch_size 1/GPU
     compute_dtype: str = "bfloat16"  # "float32" | "bfloat16" (params f32)
+    num_epochs: int = 100
     seed: int = 0                  # dropout streams derive from (seed, step)
-    log_every: int = 120
+    log_every: int = 120           # reference --log_step
+    checkpoint_dir: Optional[str] = None
+    keep_checkpoints: int = 500    # reference Saver(max_to_keep=500)
 
 
 # S3DIS class weights (train_graph_pool_new.py:46-49)

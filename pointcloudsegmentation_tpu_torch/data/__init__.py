@@ -1,3 +1,5 @@
 """Input pipeline of the port: its own numpy copies of the JAX package's
-synthetic room blocks and batching (``toy``, ``batching``), the native host
-library's binding (``native``) and the device transfer (``provider``)."""
+data modules (``io_util``, ``augment``, ``s3dis``, ``scannet``,
+``synth_rooms``, ``toy``, ``batching``), the native host library's binding
+(``native``), and the background-thread ``Provider`` with the device
+transfer (``provider``)."""

@@ -1,11 +1,99 @@
-"""Host -> device batch transfer (mirror of
-``pointcloudsegmentation_tpu.data.provider.device_prefetch``)."""
+"""Background-thread data provider and host -> device batch transfer
+(mirror of ``pointcloudsegmentation_tpu.data.provider``).
+
+``Provider`` rebuilds the reference's provider (provider.py:43-169): a
+producer thread reads and preprocesses one file ahead, the consumer iterates
+batches that may span file boundaries, and train mode shuffles the file order
+and the blocks within a file.  Blocks are padded to static shapes and stacked
+to [B, ...] numpy arrays; the same seed gives the JAX package's batches.
+The JAX Provider's context and dense-cloud fields come with the read_fns
+that yield them (ROADMAP M13).  ``device_prefetch`` moves the batches to
+the card.
+"""
 from __future__ import annotations
 
-from typing import Dict, Iterable, Iterator
+import queue
+import threading
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, \
+    Sequence
 
 import numpy as np
 import torch
+
+from .batching import pad_block, stack_blocks
+
+_STOP = object()
+
+
+class Provider:
+    """file_list + read_fn(model, filename) -> list of block dicts
+    (keys xyz/feats/labels), served as stacked static-shape batches."""
+
+    def __init__(self, file_list: Sequence[str], model: str, batch_size: int,
+                 read_fn: Callable[[str, str], List[Dict]], num_points: int,
+                 seed: int = 0, max_queue: int = 4):
+        assert model in ("train", "test")
+        self.file_list = list(file_list)
+        self.model = model
+        self.batch_size = batch_size
+        self.read_fn = read_fn
+        self.num_points = num_points
+        self.rng = np.random.RandomState(seed)
+        self.max_queue = max_queue
+        self._q: queue.Queue = queue.Queue(maxsize=max_queue)
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+    # -- producer ---------------------------------------------------------
+    def _run(self):
+        files = list(self.file_list)
+        if self.model == "train":
+            self.rng.shuffle(files)
+        pending: List[Dict] = []
+        try:
+            for fn in files:
+                if self._stop.is_set():
+                    return
+                blocks = self.read_fn(self.model, fn)
+                if self.model == "train":
+                    order = self.rng.permutation(len(blocks))
+                    blocks = [blocks[i] for i in order]
+                for b in blocks:
+                    pending.append(pad_block(b["xyz"], b.get("feats"),
+                                             b.get("labels"),
+                                             self.num_points, self.rng))
+                    if len(pending) == self.batch_size:
+                        self._q.put(stack_blocks(pending))
+                        pending = []
+            if pending:
+                # final partial batch: train resamples to full size; test
+                # pads with fully-masked blocks so IoU never double-counts
+                self._q.put(stack_blocks(pending, self.batch_size, self.rng,
+                                         pad_masked=self.model == "test"))
+        finally:
+            self._q.put(_STOP)
+
+    # -- consumer ---------------------------------------------------------
+    def __iter__(self) -> Iterator[Dict]:
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        while True:
+            item = self._q.get()
+            if item is _STOP:
+                break
+            yield item
+        self._thread.join()
+
+    def close(self):
+        self._stop.set()
+        if self._thread is not None and self._thread.is_alive():
+            try:
+                while True:
+                    self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=5)
 
 
 def to_device(batch: Dict, device) -> Dict:

@@ -74,6 +74,26 @@ class GrowthMLP(nn.Module):
         return self.fc_out(x)
 
 
+class PointNetConv(GrowthMLP):
+    """The xyz-only PointNet conv (``pointnet_conv_nofeats``,
+    model_pointnet.py:26-39; the JAX ``PointNetConv(use_feats=False)``):
+    each slot's sxyz -> growth MLP (``fc_{i}``, new first) -> ``fc_out`` ->
+    max over the neighborhood's valid slots, 0 where no slot is valid.  It
+    reads no neighbor features, so it gathers nothing."""
+
+    def __init__(self, fc_dims: Sequence[int], out_dim: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(3, fc_dims, out_dim, dtype=dtype)
+
+    def forward(self, sxyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """sxyz [N, K, 3] (already rescaled), mask [N, K] -> [N, out]."""
+        out = super().forward(sxyz)
+        best = torch.where(mask[..., None], out,
+                           torch.full_like(out, -1e30)).amax(dim=1)
+        return torch.where(mask.any(dim=1)[:, None], best,
+                           torch.zeros_like(best))
+
+
 class FCEmbed(nn.Module):
     """Leaky-ReLU (slope 0.01) Dense bottleneck before a conv."""
 

@@ -1,10 +1,12 @@
 """PointNet-conv segmentation encoder (mirror of
-``pointcloudsegmentation_tpu.models.pointnet`` for the flagship: the concat
-decoder with the factored head, fast convs fed by the search's sxyz).
+``pointcloudsegmentation_tpu.models.pointnet`` for the flagship and its
+ScanNet variant: the concat decoder with the factored head, fast convs fed
+by the search's sxyz, the xyz-only first conv).
 
 Per stage (= pyramid level): one shared multi-band search, then each conv
-(optional fc_embed bottleneck -> PointNetConvFast -> concat growth); between
-stages a voxel pool block; a global growth MLP at the top; the factored head
+(optional fc_embed bottleneck -> PointNetConvFast -> concat growth, or an
+xyz-only PointNetConv whose output replaces the features); between stages a
+voxel pool block; a global growth MLP at the top; the factored head
 projects each stage at its own level and unpools head_dim-wide sums."""
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from ..ops import hierarchy as hier
 from ..ops import search
 from ..ops.types import Pyramid
 from .fast_conv import PointNetConvFast
-from .layers import Dense, FCEmbed, GrowthMLP, PointNetPoolMLP
+from .layers import (Dense, FCEmbed, GrowthMLP, PointNetConv,
+                     PointNetPoolMLP)
 
 
 @dataclass(frozen=True)
@@ -31,12 +34,14 @@ class ConvSpec:
     embed: Optional[int] = None       # fc_embed bottleneck dim (None = skip)
     fc_dims: Tuple[int, ...] = (8, 8, 16)
     out: int = 32
+    nofeats: bool = False             # xyz-only first conv (scannet variant)
 
 
 @dataclass(frozen=True)
 class StageSpec:
     convs: Tuple[ConvSpec, ...]
     rescale: float                    # sxyz divisor for the whole stage
+                                      # (1.0: each conv divides by its radius)
     pool_fc_dims: Optional[Tuple[int, ...]] = (8, 8, 16)
     pool_out: int = 32
 
@@ -46,6 +51,9 @@ class Arch:
     stages: Tuple[StageSpec, ...]
     global_dims: Tuple[int, ...] = (32, 32, 48)
     global_out: int = 128
+    # ScanNet has no input features, hence no avg-pooled raw-feature cascade
+    # (model_pointnet.py:1440 signature vs :930-933)
+    use_avg_feats: bool = True
 
 
 # pointnet_13_dilated_embed (model_pointnet.py:930-1037), as in the JAX
@@ -87,6 +95,22 @@ S3DIS_ARCH = Arch(
 )
 
 
+# pointnet_13_dilated_embed_scannet (model_pointnet.py:1440-1547), as in the
+# JAX package's SCANNET_ARCH: the flagship's geometry, but the first conv is
+# xyz-only (no input colors on ScanNet)
+SCANNET_ARCH = Arch(
+    stages=(
+        StageSpec(rescale=0.15, convs=(
+            ConvSpec(radius=0.15, k=32, fc_dims=(16, 16, 16), out=48,
+                     nofeats=True),
+        ) + S3DIS_ARCH.stages[0].convs[1:],
+            pool_fc_dims=(8, 8, 16), pool_out=32),
+    ) + S3DIS_ARCH.stages[1:],
+    global_dims=(32, 32, 48), global_out=128,
+    use_avg_feats=False,
+)
+
+
 # search settings of the JAX package's production build (train/model_zoo.py
 # build_model and PointNetSegEncoder defaults)
 CAND_K = 64          # global search candidates
@@ -99,6 +123,9 @@ HEAD_DIM = 512       # factored head width (SegClassifier's first layer)
 class PointNetSegEncoder(nn.Module):
     """Returns (z, stage0 feats): z is the head's first Dense applied to the
     decoder concat, computed per source at its own level (HEAD_DIM wide).
+    The input features' width is ``feat_dim``; an arch whose first conv is
+    xyz-only and that drops the avg-pooled cascade reads none of them, so
+    any width will do there.
 
     Levels that are Morton-sorted, tile-aligned and at least 4 tiles long
     take the windowed search (tile/window 256 by default); the others take
@@ -121,19 +148,26 @@ class PointNetSegEncoder(nn.Module):
         for s, stage in enumerate(arch.stages):
             for c in stage.convs:
                 prev_w = w
+                name = f"feats{conv_idx}"
+                conv_idx += 1
+                if c.nofeats:
+                    # the output replaces the features (JAX :578-583)
+                    self.add_module(name, PointNetConv(c.fc_dims, c.out,
+                                                       dtype=dtype))
+                    w = c.out
+                    continue
                 fin = w
                 if c.embed is not None:
                     self.add_module(f"embed{embed_idx}",
                                     FCEmbed(w, c.embed, dtype=dtype))
                     embed_idx += 1
                     fin = c.embed
-                self.add_module(f"feats{conv_idx}", PointNetConvFast(
-                    fin, c.fc_dims, c.out, dtype=dtype))
-                conv_idx += 1
+                self.add_module(name, PointNetConvFast(fin, c.fc_dims, c.out,
+                                                       dtype=dtype))
                 w += c.out
             stage_widths.append(w)
             if s < n_stages - 1:
-                pw = feat_dim + w
+                pw = (feat_dim if arch.use_avg_feats else 0) + w
                 if stage.pool_fc_dims is not None:
                     self.add_module(f"pool{s}", PointNetPoolMLP(
                         w, stage.pool_fc_dims, stage.pool_out, dtype=dtype))
@@ -178,8 +212,9 @@ class PointNetSegEncoder(nn.Module):
             raise ValueError(f"pyramid has {pyramid.num_levels} levels, "
                              f"the arch needs {n_stages}")
         avg_feats = [feats]
-        for lvl in range(n_stages - 1):
-            avg_feats.append(hier.pool_avg(avg_feats[-1], pyramid, lvl))
+        if arch.use_avg_feats:
+            for lvl in range(n_stages - 1):
+                avg_feats.append(hier.pool_avg(avg_feats[-1], pyramid, lvl))
 
         caches = []
         for s, stage in enumerate(arch.stages):
@@ -199,17 +234,24 @@ class PointNetSegEncoder(nn.Module):
             for c in stage.convs:
                 prev_feats = feats
                 nbr, sxyz_raw = caches[s][(c.radius, c.min_radius, c.k)]
+                # a stage rescale of 1.0 means: divide by each conv's own
+                # radius (JAX models/pointnet.py:575)
+                rescale = stage.rescale if stage.rescale != 1.0 else c.radius
+                sxyz = sxyz_raw / rescale
+                conv = getattr(self, f"feats{conv_idx}")
+                conv_idx += 1
+                if c.nofeats:
+                    feats = conv(sxyz, nbr.mask)
+                    continue
                 fin = feats
                 if c.embed is not None:
                     fin = getattr(self, f"embed{embed_idx}")(feats)
                     embed_idx += 1
-                fpn = getattr(self, f"feats{conv_idx}")(
-                    sxyz_raw / stage.rescale, fin, nbr)
-                feats = torch.cat([feats, fpn], dim=-1)
-                conv_idx += 1
+                feats = torch.cat([feats, conv(sxyz, fin, nbr)], dim=-1)
             stage_feats.append(feats)
             if s < n_stages - 1:
-                parts = [avg_feats[s + 1], hier.pool_max(feats, pyramid, s)]
+                parts = [avg_feats[s + 1]] if arch.use_avg_feats else []
+                parts.append(hier.pool_max(feats, pyramid, s))
                 if stage.pool_fc_dims is not None:
                     pf = getattr(self, f"pool{s}")(pyramid.dxyz[s], feats)
                     parts.append(hier.pool_max(pf, pyramid, s))

@@ -1,3 +1,2 @@
-"""Model registry, trainer, metrics and checkpoints (mirror of
-``pointcloudsegmentation_tpu.train`` for the flagship's single-card
-training path)."""
+"""Model registry, trainer, metrics, checkpoints and the training CLI
+(mirror of ``pointcloudsegmentation_tpu.train`` on one card)."""

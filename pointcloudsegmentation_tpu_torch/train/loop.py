@@ -173,6 +173,17 @@ class Trainer:
     def num_params(self) -> int:
         return self._flat.numel()
 
+    def lr_at(self, step) -> float:
+        """The learning rate at optimizer count ``step``, for curve logging
+        (the reference's tf.summary lr scalar)."""
+        return float(self.lr_schedule(int(step)))
+
+    def bind(self, state: TrainState) -> nn.Module:
+        """The model with ``state``'s parameters (copied into the flat
+        buffer its parameters view), e.g. for ``eval_scene_probs``."""
+        self._flat.copy_(state.params)
+        return self.model
+
     # -- init ------------------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None,
                    state: Optional[TrainState] = None) -> TrainState:
@@ -218,7 +229,7 @@ class Trainer:
         Returns (s, w, cm, correct, count) summed over the blocks."""
         d = self.cfg.data
         batch = to_device(batch, self.device)
-        self._flat.copy_(state.params)
+        self.bind(state)
         self._grad.zero_()
         gen = self._dropout_generator(state.step) if train else None
         c = d.num_classes
@@ -281,16 +292,17 @@ class Trainer:
 
     # -- epochs ----------------------------------------------------------
     def run_epoch(self, state: TrainState, batches: Iterable[Dict],
-                  train: bool = True) -> Tuple[TrainState, Dict]:
+                  train: bool = True, log_every: Optional[int] = None
+                  ) -> Tuple[TrainState, Dict]:
         """One pass over ``batches`` with metrics accumulated on the device
         and read back once at the end (and at log lines, every
-        ``cfg.log_every`` steps); ``points_per_sec`` counts valid points,
-        ``blocks_per_sec`` blocks, both counted on the host before
-        transfer."""
+        ``log_every`` steps, default ``cfg.log_every``); ``points_per_sec``
+        counts valid points, ``blocks_per_sec`` blocks, both counted on the
+        host before transfer."""
         acc = metrics_lib.MetricAccumulator(self.cfg.data.num_classes)
         t0 = time.time()
         points = blocks = 0
-        log_every = self.cfg.log_every
+        log_every = log_every or self.cfg.log_every
         sizes = []
 
         def counted(bs):

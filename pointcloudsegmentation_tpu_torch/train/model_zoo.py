@@ -1,6 +1,6 @@
 """Model registry: config key -> end-to-end module (Morton sort + pyramid +
 encoder + head), mirroring ``pointcloudsegmentation_tpu.train.model_zoo``
-for the keys ``pointnet_s3dis`` and ``tiny_s3dis``."""
+for the keys ``pointnet_s3dis``, ``pointnet_scannet`` and ``tiny_s3dis``."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -10,8 +10,8 @@ from torch import nn
 
 from ..config import TrainConfig
 from ..models.layers import SegClassifier, init_glorot_
-from ..models.pointnet import (HEAD_DIM, S3DIS_ARCH, Arch, ConvSpec,
-                               PointNetSegEncoder, StageSpec)
+from ..models.pointnet import (HEAD_DIM, S3DIS_ARCH, SCANNET_ARCH, Arch,
+                               ConvSpec, PointNetSegEncoder, StageSpec)
 from ..ops import hierarchy as hier
 from ..ops import morton
 
@@ -61,7 +61,8 @@ def tiny_arch() -> Arch:
     ), global_dims=(8, 8), global_out=16)
 
 
-_ARCHS = {"pointnet_s3dis": lambda: S3DIS_ARCH, "tiny_s3dis": tiny_arch}
+_ARCHS = {"pointnet_s3dis": lambda: S3DIS_ARCH,
+          "pointnet_scannet": lambda: SCANNET_ARCH, "tiny_s3dis": tiny_arch}
 
 
 def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,

@@ -121,3 +121,25 @@ def test_pointnet_conv_fast_windowed(fc_dims, out):
         got = tmod(t(sxyz), t(feats), twn).numpy()
     np.testing.assert_allclose(got, want, **TOL)
     assert np.all(got[~mask] == 0.0)   # no valid slot -> 0
+
+
+def test_pointnet_conv_xyz_only():
+    """The ScanNet arch's first conv: growth MLP on sxyz alone, masked max
+    over the slots, 0 for a point without a valid slot."""
+    from pointcloudsegmentation_tpu.ops.types import Neighborhood
+
+    rng = np.random.RandomState(5)
+    n, k = 200, 12
+    sxyz = _x(n, k, 3, seed=4)
+    mask = rng.rand(n, k) < 0.6
+    mask[:7] = False
+    jnbr = Neighborhood(idx=np.zeros((n, k), np.int32), mask=mask)
+    jmod = jl.PointNetConv((16, 16, 16), 48, use_feats=False)
+    params = jax.tree_util.tree_map(
+        np.array, jmod.init(jax.random.PRNGKey(0), sxyz, None, jnbr))
+    want = np.array(jmod.apply(params, sxyz, None, jnbr))
+    tmod = load_flax_params(tl.PointNetConv((16, 16, 16), 48), params)
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(sxyz), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert np.all(got[:7] == 0.0)

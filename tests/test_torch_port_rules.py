@@ -13,10 +13,12 @@ import pytest
 from pointcloudsegmentation_tpu.data import batching as jbatching
 from pointcloudsegmentation_tpu.data import native as jnative
 from pointcloudsegmentation_tpu.data import toy as jtoy
-from pointcloudsegmentation_tpu_torch import bench_fused_conv
+from pointcloudsegmentation_tpu_torch import (bench_fused_conv, interpolate,
+                                              parity_ab)
 from pointcloudsegmentation_tpu_torch.data import batching as tbatching
 from pointcloudsegmentation_tpu_torch.data import native as tnative
 from pointcloudsegmentation_tpu_torch.data import toy as ttoy
+from pointcloudsegmentation_tpu_torch.train import cli
 from pointcloudsegmentation_tpu_torch.train.loop import Trainer
 from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
 
@@ -29,8 +31,11 @@ _PROBE = """
 import importlib, pkgutil, sys
 sys.path.insert(0, {root!r})
 import pointcloudsegmentation_tpu_torch as port
-for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
-    importlib.import_module(m.name)
+walked = [m.name for m in pkgutil.walk_packages(port.__path__,
+                                                port.__name__ + ".")]
+for name in walked:
+    importlib.import_module(name)
+print(sorted(walked))
 spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(sorted(n for n in sys.modules if n in ("jax", "jaxlib", "flax")
@@ -46,7 +51,12 @@ def test_port_and_chip_smoke_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", probe], capture_output=True,
                           text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().splitlines()[-1] == "[]", proc.stdout
+    *_, walked, jax_modules = proc.stdout.strip().splitlines()
+    assert jax_modules == "[]", proc.stdout
+    for name in ("train.cli", "interpolate", "parity_ab", "data.augment",
+                 "data.io_util", "data.s3dis", "data.scannet",
+                 "data.synth_rooms", "data.provider", "utils.logging"):
+        assert f"'pointcloudsegmentation_tpu_torch.{name}'" in walked, name
 
 
 def test_port_sources_name_no_jax_import():
@@ -138,3 +148,25 @@ def test_bench_cli_defaults_to_the_card(monkeypatch):
     with pytest.raises(Stop):
         bench_fused_conv.main(["--level", "1"])
     assert seen == {"level": 1, "device": "cuda"}
+
+
+@pytest.mark.parametrize("entry", ["train.cli", "interpolate", "parity_ab"])
+def test_user_entry_points_default_to_the_card(entry, monkeypatch):
+    """Without ``--device`` the CLIs ask for ``cuda`` and, with no card,
+    raise instead of running on the CPU."""
+    mod = {"train.cli": cli, "interpolate": interpolate,
+           "parity_ab": parity_ab}[entry]
+    seen = []
+    real = cli.require_device
+
+    def require_device(device):
+        seen.append(device)
+        return real(device)
+
+    monkeypatch.setattr(mod, "require_device", require_device)
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    argv = {"train.cli": ["--synthetic"], "interpolate": ["--synthetic"],
+            "parity_ab": ["--epochs", "1"]}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
+    assert seen == ["cuda"]

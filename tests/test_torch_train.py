@@ -19,11 +19,14 @@ from test_torch_model import random_params
 from pointcloudsegmentation_tpu.data import toy
 from pointcloudsegmentation_tpu.train import metrics as jmetrics
 from pointcloudsegmentation_tpu.train.config import s3dis_config as js3dis
+from pointcloudsegmentation_tpu.train.config import \
+    scannet_config as jscannet
 from pointcloudsegmentation_tpu.train.loop import Trainer as JTrainer
 from pointcloudsegmentation_tpu.train.loop import TrainState as JState
 from pointcloudsegmentation_tpu.train.loop import \
     make_lr_schedule as jschedule
 from pointcloudsegmentation_tpu.train.loop import seg_loss as jseg_loss
+from pointcloudsegmentation_tpu.train.model_zoo import build_model as jbuild
 from pointcloudsegmentation_tpu.train.loop import \
     seg_loss_terms as jseg_terms
 from pointcloudsegmentation_tpu_torch.config import (S3DIS_CLASS_WEIGHTS,
@@ -421,3 +424,42 @@ def test_train_step_matches_jax(jax_step, monkeypatch):
     lr = trainer.cfg.optim.lr_init
     assert (state.params - want.params).abs().max().item() <= 2.1 * lr
     assert state.step == want.step and int(state.count) == int(want.count)
+
+
+def test_pointnet_scannet_step_and_grads_match_jax():
+    """``Trainer(scannet_config(...))`` builds ``pointnet_scannet`` with no
+    model override and takes a step; with converted weights its
+    ``train=False`` loss (label 0 ignored, the rest shifted) and its flat
+    gradient match the JAX trainer's model at 512 points, float32, to
+    1e-4."""
+    over = dict(data_num_points=N, data_caps=(256, 64),
+                compute_dtype="float32")
+    trainer = tloop.Trainer(scannet_config(**over), device="cpu")
+    assert trainer.cfg.model == "pointnet_scannet"
+    batch = next(toy.toy_batches(1, batch_size=1, num_points=N, kind="room",
+                                 num_classes=21, feat_dim=1))
+    jcfg = jscannet(**over)
+    jmodel = jbuild(jcfg)
+    params = random_params(jmodel, batch["xyz"][0], batch["feats"][0],
+                           batch["mask"][0], seed=6)
+
+    def loss_fn(p):
+        logits = jmodel.apply(p, batch["xyz"][0], batch["feats"][0],
+                              batch["mask"][0], False)
+        return jseg_loss(logits, batch["labels"][0], batch["mask"][0], None,
+                         0)[0]
+
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    flat = np.array(ravel_pytree(grads)[0])
+    vec = ravel_pytree(params)[0]
+    opt = optax.adam(jschedule(jcfg)).init(vec)
+    state = trainer.init_state(state=flax_train_state_to_torch(
+        JState(step=np.int32(0), params=params, opt_state=opt),
+        trainer.model))
+    tloss, tgrad = trainer.loss_and_grad(state, batch, train=False)
+    np.testing.assert_allclose(float(tloss), float(loss), rtol=1e-4)
+    assert np.abs(flat).max() > 1e-2
+    np.testing.assert_allclose(tgrad.numpy(), flat, rtol=1e-4, atol=1e-4)
+    state, m = trainer.train_step(state, batch)
+    assert state.step == 1 and int(m["skipped"]) == 0
+    assert np.isfinite(float(m["loss"]))
