@@ -61,7 +61,10 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    pkl: finite probabilities whose rows sum to 1, an mIoU in [0, 1].
    (c) The train CLI trains ``pointnet_scannet`` (xyz-only first conv,
    which gathers nothing) for 3 steps with a finite loss, and its float32
-   logits on one block agree with the CPU's argmax.
+   logits on one block agree with the CPU's argmax.  (d) The train CLI
+   trains the flagship one epoch from that prepared room's pkl
+   (``--data-dir``: the Provider, rgb and covariance features): the record
+   has the JAX CLI's keys and a finite loss.
 
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
@@ -918,7 +921,6 @@ def read_records(path):
 def phase_entry_points(card):
     """9: the train CLI, the scene eval and ``pointnet_scannet`` at full
     width on the card, each with its own launch counts."""
-    import dataclasses
     import math
     import shutil
     import tempfile
@@ -1056,6 +1058,27 @@ def phase_entry_points(card):
             f"agreement {agree:.6f} (need >= {PARITY_ARGMAX_MIN}), max |d| "
             f"{(logits['cuda'] - logits['cpu']).abs().max():.3e} [{card}]")
         check(agree >= PARITY_ARGMAX_MIN, f"scannet argmax agreement {agree}")
+
+        # (d) the train CLI on the prepared room's pkl: the Provider, rgb
+        # and covariance features
+        pblocks = -(-nblk // TRAIN_BLOCKS) * TRAIN_BLOCKS
+        _, counts, secs = run_path(
+            f"train CLI s3dis --data-dir (the prepared room: {nblk} blocks, "
+            f"batches of {TRAIN_BLOCKS} x {N_POINTS} points)",
+            lambda: cli.main([
+                "--config", "s3dis", "--data-dir", scenes, "--epochs", "1",
+                "--batch-size", str(TRAIN_BLOCKS), "--num-points",
+                str(N_POINTS), "--metrics-file",
+                os.path.join(tmp, "pkl.jsonl")]),
+            plus(times(step, pblocks), times(fwd, pblocks)))
+        total = {k: total[k] + counts[k] for k in total}
+        prec, = read_records(os.path.join(tmp, "pkl.jsonl"))
+        check(set(prec) == METRICS_KEYS, f"metrics record keys {sorted(prec)}")
+        check(math.isfinite(prec["train_loss"]), f"pkl train loss {prec}")
+        log(f"[entry] train CLI on room pkls: train loss "
+            f"{prec['train_loss']:.5f}, test mIoU {prec['miou']:.4f}, "
+            f"{prec['points_per_sec']:.1f} train points/s (host-bound) "
+            f"[{card}]")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return total

@@ -7,6 +7,8 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
+import torch
+
 
 @dataclass(frozen=True)
 class OptimConfig:
@@ -73,6 +75,22 @@ def scannet_config(**overrides) -> TrainConfig:
                         feat_dim=0, ignore_label=0),
         optim=OptimConfig(epoch_steps=5000, decay_epoch=50))
     return _replace(base, overrides)
+
+
+CONFIGS = {
+    "s3dis": s3dis_config,
+    "scannet": scannet_config,
+}
+
+
+def require_device(device: str) -> torch.device:
+    """``device`` as a torch device; raises for a CUDA device when there is
+    no card (the entry points have no CPU fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this entry point runs on the "
+                           "card unless --device cpu is given")
+    return device
 
 
 def _replace(cfg: TrainConfig, overrides: dict) -> TrainConfig:

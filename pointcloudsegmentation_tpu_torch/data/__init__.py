@@ -2,4 +2,29 @@
 data modules (``io_util``, ``augment``, ``s3dis``, ``scannet``,
 ``synth_rooms``, ``toy``, ``batching``), the native host library's binding
 (``native``), and the background-thread ``Provider`` with the device
-transfer (``provider``)."""
+transfer (``provider``).  ``blocks_fn_for`` and ``read_fn_for`` pick a
+config's reader of prepared pkls for the train CLI and the scene eval."""
+from functools import partial
+
+from . import io_util, s3dis, scannet
+
+
+def blocks_fn_for(cfg, config_name: str):
+    """(model, loaded pkl) -> block dicts for the config's dataset: S3DIS
+    rooms (rgb, with the covariance features when the config's feat_dim is
+    above 3) or ScanNet scenes (geometry only)."""
+    return {
+        "s3dis": partial(s3dis.blocks_from_room,
+                         use_covars=cfg.data.feat_dim > 3),
+        "scannet": scannet.blocks_from_scene,
+    }[config_name]
+
+
+def read_fn_for(cfg, config_name: str):
+    """The Provider read_fn of the config's dataset: (model, pkl path) ->
+    block dicts, as ``blocks_fn_for`` builds them."""
+    return partial(_read, blocks_fn_for(cfg, config_name))
+
+
+def _read(blocks_fn, model: str, filename: str):
+    return blocks_fn(model, io_util.read_pkl(filename))

@@ -6,9 +6,11 @@ producer thread reads and preprocesses one file ahead, the consumer iterates
 batches that may span file boundaries, and train mode shuffles the file order
 and the blocks within a file.  Blocks are padded to static shapes and stacked
 to [B, ...] numpy arrays; the same seed gives the JAX package's batches.
-The JAX Provider's context and dense-cloud fields come with the read_fns
-that yield them (ROADMAP M13).  ``device_prefetch`` moves the batches to
-the card.
+An exception in the producer (a bad pkl, a native library that did not
+build) is raised by the consumer, where the JAX Provider ends the epoch
+early.  The JAX Provider's context and dense-cloud fields come with the
+read_fns that yield them (ROADMAP M13).  ``device_prefetch`` moves the
+batches to the card.
 """
 from __future__ import annotations
 
@@ -23,6 +25,13 @@ import torch
 from .batching import pad_block, stack_blocks
 
 _STOP = object()
+
+
+class _Failed:
+    """The producer's exception, queued for the consumer to raise."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
 
 
 class Provider:
@@ -70,6 +79,10 @@ class Provider:
                 # pads with fully-masked blocks so IoU never double-counts
                 self._q.put(stack_blocks(pending, self.batch_size, self.rng,
                                          pad_masked=self.model == "test"))
+        except BaseException as e:
+            # handed to the consumer, which raises it: a failed read must
+            # not end the epoch early as if the files had run out
+            self._q.put(_Failed(e))
         finally:
             self._q.put(_STOP)
 
@@ -82,6 +95,9 @@ class Provider:
             item = self._q.get()
             if item is _STOP:
                 break
+            if isinstance(item, _Failed):
+                self._thread.join()
+                raise item.error
             yield item
         self._thread.join()
 

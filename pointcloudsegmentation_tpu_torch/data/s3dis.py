@@ -62,8 +62,14 @@ def blocks_from_room_pkl(model: str, filename: str,
     """Provider read_fn for pre-sampled room pkls
     (train_graph_pool_new.py:248-275): train mode applies flips/swap +
     color jitter; features are rgb (optionally ‖ covars)."""
+    return blocks_from_room(model, read_pkl(filename), use_covars, rng)
+
+
+def blocks_from_room(model: str, data, use_covars: bool = False,
+                     rng: Optional[np.random.RandomState] = None
+                     ) -> List[Dict]:
+    """``blocks_from_room_pkl`` on a room pkl already loaded."""
     rng = rng or np.random.RandomState()
-    data = read_pkl(filename)
     if isinstance(data, dict):
         xyzs, rgbs, covars, lbls = (data["xyzs"], data["rgbs"],
                                     data["covars"], data["lbls"])

@@ -54,8 +54,14 @@ def blocks_from_scene_pkl(model: str, filename: str,
                           ) -> List[Dict]:
     """Provider read_fn: geometry-only features (empty feat vector; the
     ScanNet encoder ignores input feats)."""
+    return blocks_from_scene(model, read_pkl(filename), rng)
+
+
+def blocks_from_scene(model: str, data: Dict,
+                      rng: Optional[np.random.RandomState] = None
+                      ) -> List[Dict]:
+    """``blocks_from_scene_pkl`` on a scene pkl already loaded."""
     rng = rng or np.random.RandomState()
-    data = read_pkl(filename)
     xyzs, lbls = data["xyzs"], data["lbls"]
     out = []
     for i in range(len(xyzs)):

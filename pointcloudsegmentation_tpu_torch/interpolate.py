@@ -32,12 +32,12 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from .data import io_util, toy
+from .config import CONFIGS, require_device
+from .data import blocks_fn_for, io_util, toy
 from .data.batching import pad_block
 from .eval.interpolate import (S3DIS_RATIO, eval_scene_probs,
                                interpolate_to_dense, scene_iou)
 from .train.checkpoint import CheckpointManager
-from .train.cli import CONFIGS, read_fn_for, require_device
 from .train.loop import Trainer
 from .utils.logging import get_logger
 
@@ -65,7 +65,7 @@ def load_blocks(path: str, cfg, config_name: str,
     """A prepared scene pkl -> padded blocks with their ``block_min``,
     features as the config's training read_fn gives them."""
     data = io_util.read_pkl(path)
-    blocks = read_fn_for(cfg, config_name)("test", path)
+    blocks = blocks_fn_for(cfg, config_name)("test", data)
     out = []
     for b, bmin in zip(blocks, data["block_mins"]):
         pb = pad_block(b["xyz"], b["feats"], b["labels"],

@@ -25,9 +25,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .config import s3dis_config, scannet_config
+from .config import require_device, s3dis_config, scannet_config
 from .data import batching, synth_rooms
-from .train.cli import require_device
 from .train.loop import Trainer
 from .train.metrics import MetricAccumulator
 from .utils.logging import get_logger
@@ -120,10 +119,6 @@ def main(argv=None):
                    help="registry key; default: the config's flagship")
     p.add_argument("--config", choices=["s3dis", "scannet"],
                    default="s3dis")
-    p.add_argument("--hard", action="store_true",
-                   help="hard synthetic regime: scanner density gradient, "
-                        "occlusion dropout, speckle, rarer minority "
-                        "classes, 2-room scenes (blocks straddle rooms)")
     p.add_argument("--out", type=str, default="results/parity_ab_torch.json")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
@@ -132,13 +127,11 @@ def main(argv=None):
     log = get_logger("pcs_torch.parity_ab")
 
     t0 = time.time()
-    gen_kw = dict(hard=True, rooms_per_scene=2) if args.hard else {}
     rng = np.random.RandomState(args.seed)
     train_blocks = synth_rooms.room_blocks(rng, args.train_rooms,
-                                           model="train", **gen_kw)
+                                           model="train")
     test_blocks = synth_rooms.room_blocks(np.random.RandomState(10_000),
-                                          args.test_rooms, model="test",
-                                          **gen_kw)
+                                          args.test_rooms, model="test")
     if args.config == "scannet":
         train_blocks = scannetify(train_blocks, rng)
         test_blocks = scannetify(test_blocks, np.random.RandomState(10_001))

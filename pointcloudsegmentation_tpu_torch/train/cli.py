@@ -19,33 +19,18 @@ import argparse
 import glob
 import json
 import os
-from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import config as config_lib
-from ..data import s3dis, scannet, toy
+from ..config import CONFIGS, require_device
+from ..data import read_fn_for, toy
 from ..data.provider import Provider
 from ..utils.logging import get_logger
 from .checkpoint import CheckpointManager
 from .loop import Trainer
-
-CONFIGS = {
-    "s3dis": config_lib.s3dis_config,
-    "scannet": config_lib.scannet_config,
-}
-
-
-def require_device(device: str) -> torch.device:
-    """``device`` as a torch device; raises for a CUDA device when there is
-    no card (there is no CPU fallback)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: this entry point runs on the "
-                           "card unless --device cpu is given")
-    return device
 
 
 def parse_args(argv=None):
@@ -118,39 +103,33 @@ def _ablate(batch, mode):
     return out
 
 
-def read_fn_for(cfg, config_name: str):
-    """The Provider read_fn of a dataset: S3DIS room pkls (rgb, with the
-    covariance features when the config's feat_dim is above 3) or ScanNet
-    scene pkls (geometry only)."""
-    return {
-        "s3dis": partial(s3dis.blocks_from_room_pkl,
-                         use_covars=cfg.data.feat_dim > 3),
-        "scannet": scannet.blocks_from_scene_pkl,
-    }[config_name]
-
-
 def make_batches(cfg, args, split: str, batch_size: int):
-    """A callable giving one epoch's batches of ``split``: synthetic room
-    blocks (train seed 0, test seed 1) or the Provider over the split's
-    pkls."""
+    """A callable giving epoch ``e``'s batches of ``split``: synthetic room
+    blocks (train seed 0, test seed 1, the same every epoch) or the
+    Provider over the split's pkls.  The train Provider is seeded with the
+    epoch number, so every epoch has its own file order, block shuffle and
+    subsample (the JAX CLI seeds every epoch 0); the test Provider keeps
+    seed 0, so every test pass reads the same batches."""
     d = cfg.data
     if args.synthetic or not args.data_dir:
         steps = args.steps_per_epoch or 50
-        return lambda: (_ablate(b, args.ablate_feats)
-                        for b in toy.toy_batches(
-                            steps, batch_size, num_points=d.num_points,
-                            num_classes=d.num_classes,
-                            feat_dim=max(d.feat_dim, 1),
-                            seed=0 if split == "train" else 1))
+        return lambda epoch: (_ablate(b, args.ablate_feats)
+                              for b in toy.toy_batches(
+                                  steps, batch_size, num_points=d.num_points,
+                                  num_classes=d.num_classes,
+                                  feat_dim=max(d.feat_dim, 1),
+                                  seed=0 if split == "train" else 1))
     data_dir = args.data_dir if split == "train" else (
         args.test_data_dir or args.data_dir)
     files = sorted(glob.glob(os.path.join(data_dir, "*.pkl")))
     if not files:
         raise FileNotFoundError(f"no .pkl files in {data_dir}")
     read_fn = read_fn_for(cfg, args.config)
-    return lambda: (_ablate(b, args.ablate_feats)
-                    for b in Provider(files, split, batch_size, read_fn,
-                                      d.num_points))
+    return lambda epoch: (_ablate(b, args.ablate_feats)
+                          for b in Provider(
+                              files, split, batch_size, read_fn,
+                              d.num_points,
+                              seed=epoch if split == "train" else 0))
 
 
 def _metrics_writer(args, cfg):
@@ -209,7 +188,7 @@ def main(argv=None):
 
     try:
         if args.eval:
-            state, res = trainer.run_epoch(state, test_batches(),
+            state, res = trainer.run_epoch(state, test_batches(0),
                                            train=False)
             log.info("eval mIoU %.4f oIoU %.4f oAcc %.4f loss %.4f",
                      res["miou"], res["oiou"], res["oacc"],
@@ -227,9 +206,9 @@ def main(argv=None):
             # the LR at the epoch's first step: the state after the epoch
             # would read the next step's schedule value
             epoch_lr = trainer.lr_at(state.step)
-            state, tr = trainer.run_epoch(state, train_batches(),
+            state, tr = trainer.run_epoch(state, train_batches(epoch),
                                           train=True)
-            state, te = trainer.run_epoch(state, test_batches(),
+            state, te = trainer.run_epoch(state, test_batches(epoch),
                                           train=False)
             log.info("epoch %d train-loss %.4f | test mIoU %.4f oIoU %.4f "
                      "oAcc %.4f | %.0f points/s",

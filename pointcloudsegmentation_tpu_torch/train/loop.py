@@ -292,17 +292,16 @@ class Trainer:
 
     # -- epochs ----------------------------------------------------------
     def run_epoch(self, state: TrainState, batches: Iterable[Dict],
-                  train: bool = True, log_every: Optional[int] = None
-                  ) -> Tuple[TrainState, Dict]:
+                  train: bool = True) -> Tuple[TrainState, Dict]:
         """One pass over ``batches`` with metrics accumulated on the device
         and read back once at the end (and at log lines, every
-        ``log_every`` steps, default ``cfg.log_every``); ``points_per_sec``
-        counts valid points, ``blocks_per_sec`` blocks, both counted on the
-        host before transfer."""
+        ``cfg.log_every`` steps); ``points_per_sec`` counts valid points,
+        ``blocks_per_sec`` blocks, both counted on the host before
+        transfer."""
         acc = metrics_lib.MetricAccumulator(self.cfg.data.num_classes)
         t0 = time.time()
         points = blocks = 0
-        log_every = log_every or self.cfg.log_every
+        log_every = self.cfg.log_every
         sizes = []
 
         def counted(bs):

@@ -1,8 +1,10 @@
 """The port's user entry points on the CPU: the train CLI against the JAX
 CLI's config and LR, a ``tiny_s3dis`` run that checkpoints and writes the
 JAX CLI's metrics record, ``--restore --eval`` reproducing the epoch's test
-metrics, the scene eval on synthetic blocks and on a prepared room (with
-the 12-feature checkpoint), and one epoch of the training-curve run."""
+metrics, training from prepared room pkls, the feature ablations against
+the JAX CLI's, the scene eval on synthetic blocks and on a prepared room
+(with the 12-feature checkpoint), and one epoch of the training-curve
+run."""
 import dataclasses
 import json
 
@@ -87,6 +89,93 @@ def test_cli_restore_eval_reproduces_the_test_metrics(trained):
     for key in ("miou", "oiou", "oacc", "iou", "acc"):
         assert ev[key] == rec[key], key
     assert float(res["miou"]) == rec["miou"]
+
+
+@pytest.fixture(scope="module")
+def room_dirs(tmp_path_factory):
+    """A synthetic room prepared into a train dir (its first 4 blocks) and
+    another into a test dir (its first 2)."""
+    d = tmp_path_factory.mktemp("rooms")
+    for split, seed, blocks in (("train", 3, 4), ("test", 4, 2)):
+        points, labels = synth_rooms.synthetic_s3dis_room(
+            np.random.RandomState(seed))
+        prep = s3dis.prepare_room(points, labels,
+                                  rng=np.random.RandomState(seed))
+        s3dis.save_pkl(str(d / split / f"room{seed}.pkl"),
+                       {k: v[:blocks] for k, v in prep.items()})
+    return d
+
+
+def _data_argv(room_dirs, *extra):
+    return ["--config", "s3dis", "--model", "tiny_s3dis", "--num-points",
+            "512", "--batch-size", "2", "--data-dir",
+            str(room_dirs / "train"), "--test-data-dir",
+            str(room_dirs / "test"), *extra]
+
+
+def test_cli_trains_from_prepared_room_pkls(room_dirs, tmp_path):
+    """The Provider over room pkls (rgb and covariance features) feeds an
+    epoch of the CLI, which checkpoints and writes the JAX CLI's record."""
+    argv = _data_argv(room_dirs, "--epochs", "1", "--device", "cpu",
+                      "--checkpoint-dir", str(tmp_path / "ck"),
+                      "--metrics-file", str(tmp_path / "m.jsonl"))
+    state = cli.main(argv)
+    assert state.step == 2   # 4 blocks, 2 a step
+    assert (tmp_path / "ck" / "epoch_000000.pt").exists()
+    rec, = [json.loads(line) for line in open(tmp_path / "m.jsonl")]
+    assert set(rec) == JAX_RECORD_KEYS
+    assert rec["epoch"] == 0 and np.isfinite(rec["train_loss"])
+    assert 0.0 <= rec["miou"] <= 1.0 and len(rec["iou"]) == 13
+
+
+def test_cli_provider_batches_per_epoch(room_dirs):
+    """The test batches equal the JAX CLI's; the train Provider is seeded
+    with the epoch number (the JAX CLI seeds every epoch 0), so epoch 0
+    shuffles and subsamples as the JAX CLI does and epoch 1 differently.
+    Train labels are compared: the color jitter draws from an unseeded
+    stream in both packages."""
+    argv = _data_argv(room_dirs)
+    args = cli.parse_args(argv)
+    cfg = cli.build_cfg(args)
+    jargs = jcli.parse_args(argv)
+    jcfg = jcli.build_cfg(jargs)
+    got = list(cli.make_batches(cfg, args, "test", 2)(1))
+    want = list(jcli.make_batches(jcfg, jargs, "test", 2)())
+    assert len(got) == len(want) == 1
+    for g, w in zip(got, want):
+        assert g["feats"].shape == (2, 512, 12)
+        for key in w:
+            np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+    train = cli.make_batches(cfg, args, "train", 2)
+    labels = [np.stack([b["labels"] for b in train(e)]) for e in (0, 1)]
+    jlabels = np.stack([b["labels"] for b in
+                        jcli.make_batches(jcfg, jargs, "train", 2)()])
+    np.testing.assert_array_equal(labels[0], jlabels)
+    assert not np.array_equal(labels[1], labels[0])
+
+
+@pytest.mark.parametrize("mode", ["none", "zero", "drop-rgb",
+                                  "drop-covars"])
+def test_cli_ablate_feats_matches_jax(mode):
+    """``--ablate-feats`` gives the JAX CLI's batches (12 features: rgb
+    and covariances)."""
+    argv = ["--config", "s3dis", "--synthetic", "--num-points", "256",
+            "--steps-per-epoch", "2", "--ablate-feats", mode]
+    args = cli.parse_args(argv)
+    jargs = jcli.parse_args(argv)
+    got = list(cli.make_batches(cli.build_cfg(args), args, "train", 2)(0))
+    want = list(jcli.make_batches(jcli.build_cfg(jargs), jargs, "train",
+                                  2)())
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g["feats"].shape == (2, 256, 12)
+        for key in w:
+            np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+    feats = got[0]["feats"]
+    zeroed = {"none": [], "zero": range(12), "drop-rgb": range(3),
+              "drop-covars": range(3, 12)}[mode]
+    for col in range(12):
+        assert (feats[..., col] == 0).all() == (col in zeroed), col
 
 
 def test_scene_eval_synthetic(tmp_path):

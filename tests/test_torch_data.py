@@ -239,29 +239,17 @@ def test_scannet_prepare_and_blocks_from_scene_pkl(tmp_path, model):
 
 # -- batching and the Provider -----------------------------------------------
 
-def test_batching_pad_block_with_point_fields():
+def test_batching_pad_block():
     rng = np.random.RandomState(9)
-    for n in (60, 150):
+    for n in (60, 150):   # padded, then subsampled to 100
         args = (rng.randn(n, 3).astype(np.float32),
                 rng.randn(n, 5).astype(np.float32),
                 rng.randint(0, 13, n).astype(np.int32), 100)
-        fields = {"ctx_idx": rng.randint(0, 30, n).astype(np.int32)}
         got, want = _both(jbatching.pad_block, tbatching.pad_block, *args,
-                          seed=n, point_fields=fields)
+                          seed=n)
         assert_same(got, want)
     assert_same(tbatching.pad_block(args[0], None, None, 200),
                 jbatching.pad_block(args[0], None, None, 200))
-
-
-@pytest.mark.parametrize("m", [40, 90])   # padded, then capped at 64
-def test_batching_pad_context(m):
-    rng = np.random.RandomState(m)
-    ctx_xyz = rng.uniform(-5, 5, (m, 3)).astype(np.float32)
-    ctx_feats = rng.randn(m, 4).astype(np.float32)
-    ctx_idx = rng.randint(0, m, 120).astype(np.int32)
-    block_xyz = rng.uniform(-5, 5, (120, 3)).astype(np.float32)
-    args = (ctx_xyz, ctx_feats, ctx_idx, 64, block_xyz)
-    assert_same(tbatching.pad_context(*args), jbatching.pad_context(*args))
 
 
 @pytest.mark.parametrize("pad_masked", [False, True])
@@ -294,3 +282,22 @@ def test_provider_batches(room_pkl, tmp_path, model):
     blocks = sum(len(js3dis.read_pkl(f)["xyzs"]) for f in files)
     assert len(out["j"]) == -(-blocks // 4) >= 4
     assert_same(out["t"], out["j"])
+
+
+@pytest.mark.parametrize("model", ["train", "test"])
+def test_provider_raises_the_producers_error(room_pkl, model):
+    """A read that fails in the producer thread is raised to the consumer
+    after the batches before it, not taken for the end of the files."""
+    files = list(room_pkl) + ["missing.pkl"]
+    if model == "train":   # the shuffled order puts the bad file anywhere
+        files = ["missing.pkl"]
+    read_fn = functools.partial(ts3dis.blocks_from_room_pkl,
+                                rng=np.random.RandomState(4))
+    prov = tprovider.Provider(files, model, 4, read_fn, 2048, seed=6)
+    got = []
+    with pytest.raises(FileNotFoundError, match="missing.pkl"):
+        for b in prov:
+            got.append(b)
+    blocks = sum(len(js3dis.read_pkl(f)["xyzs"]) for f in room_pkl)
+    assert len(got) == (blocks // 4 if model == "test" else 0)
+    assert not prov._thread.is_alive()
