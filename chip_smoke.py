@@ -65,6 +65,23 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    trains the flagship one epoch from that prepared room's pkl
    (``--data-dir``: the Provider, rgb and covariance features): the record
    has the JAX CLI's keys and a finite loss.
+10. the rest of the PointNet family: ``pointnet_semantic3d`` (its level-1
+   pre-stage conv), ``pointnet_semantic3d_dilate``, ``pointnet_baseline20``
+   (20 noconcat convs on gathered features), ``pointnet_concat10_deconv``
+   (the deconv decoder and the unfactored head) and ``pointnet_embed_only``
+   at full width, bf16 compute, seeded weights; the Semantic3D keys on 10 m
+   blocks of 10,240 points (13 features) that the port's
+   ``semantic3d.sample_training_blocks`` cuts from a seeded synthetic
+   outdoor scan, the S3DIS keys on toy blocks of 8192 points.  (a) One
+   ``Trainer`` step of 4 blocks each: a finite loss, and both kernels'
+   launches as counted per block (K3 only where the gathered features
+   take a gradient).  (b) Each key's float32 logits on one block agree
+   with the CPU's argmax.  (c) The train CLI trains ``--config semantic3d``
+   one epoch from those blocks' pkl (``--data-dir``): the JAX CLI's record
+   with 8 classes and a finite loss.  (d) K2 bit for bit and K3 under
+   phase 6's rules at the new extreme row widths (the pre-stage's 13
+   columns in float32 and bf16, and the widest gather of the five), timed
+   as in phases 3 and 6.
 
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
@@ -86,6 +103,10 @@ PARITY_NBR_MIN = 0.999      # share of valid neighbor slots equal, card vs CPU
 PARITY_ARGMAX_MIN = 0.99    # share of points with equal logit argmax
 PROB_SUM_TOL = 1e-3
 CLI_STEPS = 3               # phase 9: train and test steps of each CLI run
+SEM3D_POINTS = 10240        # phase 10: semantic3d_config's point budget
+SEM3D_KEYS = ("pointnet_semantic3d", "pointnet_semantic3d_dilate")
+S3DIS_KEYS = ("pointnet_baseline20", "pointnet_concat10_deconv",
+              "pointnet_embed_only")
 METRICS_KEYS = {"epoch", "train_loss", "lr", "miou", "oiou", "oacc", "iou",
                 "acc", "points_per_sec"}   # the JAX CLI's epoch record
 DSLAB_F32_RTOL = 1e-6       # slab-gradient kernel vs plain, float32
@@ -163,10 +184,46 @@ def phase_build():
         f" -> {os.path.relpath(built.path, ROOT)}) in {built.seconds:.2f} s")
 
 
+def windowed_convs(model, cfg):
+    """(level, K, F, grad) of every conv of the model that gathers
+    features on a windowed level, in the order they run: Semantic3D's
+    pre-stage at level 1 first, then each stage's convs but the xyz-only
+    ones (they gather nothing).  F is a fast conv's ΣD, or the width of
+    the features a PointNetConv gathers; grad says whether the gathered
+    tensor takes a gradient, so that a training step's backward runs the
+    slab-gradient kernels on it: not where a PointNetConv gathers the raw
+    input features (the pre-stage, and a first conv without an embed)."""
+    from pointcloudsegmentation_tpu_torch.models.layers import PointNetConv
+
+    enc = model.encoder
+    sizes = (cfg.data.num_points,) + tuple(cfg.data.caps)
+    ps = enc.arch.pre_stage
+    convs = []
+    if ps is not None:
+        convs.append((1, ps.k, (enc.feats_pre.fc_0.in_features - 3) // 2,
+                      False))
+    i = 0
+    for s, stage in enumerate(enc.arch.stages):
+        for j, c in enumerate(stage.convs):
+            conv = getattr(enc, f"feats{i}")
+            i += 1
+            if c.nofeats:
+                continue
+            if isinstance(conv, PointNetConv):
+                raw = s == 0 and j == 0 and c.embed is None and ps is None
+                convs.append((s, c.k, (conv.fc_0.in_features - 3) // 2,
+                              not raw))
+            else:
+                convs.append((s, c.k, conv.offs[-1], True))
+    return [cv for cv in convs if sizes[cv[0]] % enc.win_tile == 0
+            and sizes[cv[0]] >= 4 * enc.win_tile]
+
+
 def gather_shapes(model, cfg):
-    """(name, N, K, F, dtype) of every window-gather launch the flagship's
-    inference path makes, per level: the search's xyzm read and each conv's
-    projection gather (K = the band's slots, F = the conv's ΣD)."""
+    """(name, N, K, F, dtype) of every window-gather launch the model's
+    forward makes, per windowed level: the search's xyzm read (K = its
+    candidate pool) and each gathering conv's gather (``windowed_convs``),
+    in the model's compute dtype."""
     import torch
 
     from pointcloudsegmentation_tpu_torch.models.pointnet import (
@@ -175,21 +232,42 @@ def gather_shapes(model, cfg):
 
     enc = model.encoder
     sizes = (cfg.data.num_points,) + tuple(cfg.data.caps)
+    convs = windowed_convs(model, cfg)
     shapes = []
-    for s, stage in enumerate(enc.arch.stages):
+    for s in range(len(enc.arch.stages)):
         n = sizes[s]
         if n % enc.win_tile or n < 4 * enc.win_tile:
             continue
-        bands = [(c.min_radius, c.radius, c.k) for c in stage.convs]
+        bands = [(mn, mx, k) for mx, mn, k in dict.fromkeys(
+            enc.stage_specs(s))]
         ck = search.effective_win_cand_k(WIN_CAND_K, CAND_K, bands, n)
         shapes.append((f"L{s} search xyzm", n, ck, 4, torch.float32))
-        for c in stage.convs:
-            if c.nofeats:       # xyz-only: gathers no features
-                continue
-            f = sum(c.fc_dims) + c.out
-            shapes.append((f"L{s} conv", n, c.k, f,
-                           enc.dtype or torch.float32))
+        shapes.extend((f"L{s} conv", n, k, f, enc.dtype or torch.float32)
+                      for lvl, k, f, _ in convs if lvl == s)
     return shapes
+
+
+def per_block(cfg):
+    """Kernel launches per block of a forward and of a training step of
+    ``cfg``'s model: K2 at every gather of ``gather_shapes``, and in the
+    backward K3 (map and sum kernels) at every windowed gather that takes
+    a gradient."""
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    model = build_model(cfg, None, "cpu")
+    gathers = len(gather_shapes(model, cfg))
+    trained = sum(grad for *_, grad in windowed_convs(model, cfg))
+    return ({"window_gather": gathers},
+            {"window_gather": gathers, "window_dslab": trained,
+             "window_dslab_map": trained})
+
+
+def times(counts, n):
+    return {k: v * n for k, v in counts.items()}
+
+
+def plus(a, b):
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
 
 
 def path_neighborhoods(model, cfg, xyz, mask):
@@ -935,22 +1013,6 @@ def phase_entry_points(card):
     from pointcloudsegmentation_tpu_torch.train import cli
     from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
 
-    def per_block(cfg):
-        """Launches per block of a forward and of a training step."""
-        model = build_model(cfg, None, "cpu")
-        convs = sum(not c.nofeats for st in model.encoder.arch.stages
-                    for c in st.convs)
-        gathers = len(gather_shapes(model, cfg))
-        return ({"window_gather": gathers},
-                {"window_gather": gathers, "window_dslab": convs,
-                 "window_dslab_map": convs})
-
-    def times(counts, n):
-        return {k: v * n for k, v in counts.items()}
-
-    def plus(a, b):
-        return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
-
     total = {"window_gather": 0, "window_dslab": 0, "window_dslab_map": 0}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1084,6 +1146,243 @@ def phase_entry_points(card):
     return total
 
 
+def outdoor_scan(seed):
+    """A seeded synthetic outdoor scan in Semantic3D's raw layout: [n, 7]
+    float32 x y z intensity r g b over 22 x 27 m at about 5 cm spacing,
+    and int32 labels 0..8: rolling ground (1 man-made terrain on a road
+    strip, 2 natural terrain elsewhere), low vegetation (4), two building
+    facades (5), trees (3: trunk and crown), a low wall (6), cars (8), and
+    2% of the points unlabeled (0) or speckle artefacts (7)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    wx, wy = 22.0, 27.0
+    parts, labels = [], []
+
+    def ground(x, y):
+        return 0.3 * np.sin(x / 7.0) + 0.2 * np.cos(y / 5.0)
+
+    def add(xyz, label):
+        parts.append(xyz)
+        labels.append(np.full(len(xyz), label, np.int32))
+
+    n = int(wx * wy / 0.05 ** 2)
+    x, y = rng.uniform(0, wx, n), rng.uniform(0, wy, n)
+    g = np.stack([x, y, ground(x, y) + 0.01 * rng.randn(n)], 1)
+    road = np.abs(x - 8.0) < 3.0
+    add(g[road], 1)
+    add(g[~road], 2)
+    for _ in range(6):                      # low vegetation patches
+        c = rng.uniform([12, 0], [wx, wy])
+        m = 1500
+        p = c + rng.randn(m, 2) * 0.8
+        add(np.stack([p[:, 0], p[:, 1], ground(p[:, 0], p[:, 1])
+                      + rng.uniform(0, 0.5, m)], 1), 4)
+    for x0 in (0.5, 20.5):                  # building facades along y
+        m = int(wy * 8.0 / 0.05 ** 2)
+        add(np.stack([x0 + 0.02 * rng.randn(m), rng.uniform(0, wy, m),
+                      rng.uniform(0, 8.0, m)], 1), 5)
+    for _ in range(5):                      # trees: trunk and crown
+        cx, cy = rng.uniform([13, 1], [19, wy - 1])
+        z0 = ground(cx, cy)
+        m = 800
+        t = rng.uniform(0, 2 * np.pi, m)
+        add(np.stack([cx + 0.15 * np.cos(t), cy + 0.15 * np.sin(t),
+                      z0 + rng.uniform(0, 2.5, m)], 1), 3)
+        d = rng.randn(6000, 3)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        add(np.array([cx, cy, z0 + 4.0]) + d * rng.uniform(1.5, 2.0, (6000, 1))
+            * np.array([1.0, 1.0, 0.8]), 3)
+    m = int(wy * 1.0 / 0.05 ** 2)           # a low wall beside the road
+    add(np.stack([11.2 + 0.02 * rng.randn(m), rng.uniform(0, wy, m),
+                  rng.uniform(0, 1.0, m)], 1), 6)
+    for cy in (3.0, 11.0, 19.0):            # cars on the road
+        lo = np.array([6.5, cy, ground(8.0, cy)])
+        hi = lo + np.array([1.8, 4.2, 1.5])
+        m = 6000
+        p = rng.uniform(lo, hi, (m, 3))
+        face = rng.randint(0, 3, m)
+        p[np.arange(m), face] = np.where(rng.rand(m) < 0.5, lo[face],
+                                         hi[face])
+        add(p, 8)
+    xyz = np.concatenate(parts).astype(np.float32)
+    lab = np.concatenate(labels)
+    flip = rng.rand(len(lab)) < 0.02
+    lab[flip] = rng.choice([0, 7], int(flip.sum()))
+    speckle = lab == 7
+    xyz[speckle] += rng.randn(int(speckle.sum()), 3).astype(np.float32) * 0.3
+    # colours and return intensity by class, with noise
+    base = np.array([[128, 128, 128], [90, 90, 95], [110, 140, 70],
+                     [40, 110, 40], [80, 150, 60], [180, 160, 140],
+                     [150, 150, 150], [200, 40, 200], [170, 30, 30]])
+    rgb = np.clip(base[lab] + rng.randn(len(lab), 3) * 12, 0, 255)
+    inten = np.array([-500, 300, -800, -1200, -900, 600, 200, 0, 900])[lab] \
+        + rng.randn(len(lab)) * 150
+    pts = np.concatenate([xyz, inten[:, None], rgb], 1).astype(np.float32)
+    return pts, lab
+
+
+def semantic3d_blocks(seed, count):
+    """``count`` Semantic3D training blocks of at least SEM3D_POINTS points
+    each, made by the port's ``semantic3d.sample_training_blocks`` (10 m
+    blocks at a 5 m stride, 6 cm grid, covariance features) from the
+    seeded outdoor scan."""
+    import numpy as np
+
+    from pointcloudsegmentation_tpu_torch.data import semantic3d
+
+    pts, labels = outdoor_scan(seed)
+    blocks = semantic3d.sample_training_blocks(
+        pts, labels, min_pn=SEM3D_POINTS, rng=np.random.RandomState(seed))
+    check(len(blocks) >= count, f"{len(blocks)} Semantic3D blocks of >= "
+          f"{SEM3D_POINTS} points from the scan, need {count}")
+    check(all(len(b["xyz"]) >= SEM3D_POINTS for b in blocks[:count]),
+          "a Semantic3D block below the point budget")
+    log(f"[family] outdoor scan: {len(pts)} points -> {len(blocks)} blocks "
+        f"of 10 m ({min(len(b['xyz']) for b in blocks)}-"
+        f"{max(len(b['xyz']) for b in blocks)} points, 13 features)")
+    return blocks[:count]
+
+
+def block_batch(blocks, num_points, seed):
+    """One training batch of ``blocks`` read as the train Provider reads
+    them (Semantic3D's flips and colour jitter), each subsampled to
+    ``num_points``: [B, num_points, ...] numpy arrays."""
+    import numpy as np
+
+    from pointcloudsegmentation_tpu_torch.data import batching, semantic3d
+
+    rng = np.random.RandomState(seed)
+    return batching.stack_blocks([
+        batching.pad_block(b["xyz"], b["feats"], b["labels"], num_points, rng)
+        for b in semantic3d.blocks_from_list("train", blocks, rng)])
+
+
+def phase_family(card):
+    """10: the five other PointNetSegEncoder archs at full width, bf16
+    compute with f32 params and seeded weights: (a) one Trainer step of
+    TRAIN_BLOCKS blocks each with a finite loss and the counted launches;
+    (b) a float32 one-block forward on the card and on the CPU with equal
+    argmax; (c) the train CLI on Semantic3D block pkls; (d) K2 and K3
+    against their plain versions at the new extreme row widths."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.config import (s3dis_config,
+                                                         semantic3d_config)
+    from pointcloudsegmentation_tpu_torch.data import semantic3d, toy
+    from pointcloudsegmentation_tpu_torch.train import cli
+    from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    total = {"window_gather": 0, "window_dslab": 0, "window_dslab_map": 0}
+    blocks = semantic3d_blocks(0, CLI_STEPS * TRAIN_BLOCKS)
+    s3d_batch = block_batch(blocks[:TRAIN_BLOCKS], SEM3D_POINTS, 0)
+    s3dis_batch = next(toy.toy_batches(1, batch_size=TRAIN_BLOCKS,
+                                       num_points=N_POINTS, num_classes=13,
+                                       feat_dim=12))
+    cfgs = [semantic3d_config(model=k) for k in SEM3D_KEYS] \
+        + [s3dis_config(model=k) for k in S3DIS_KEYS]
+    widest = None
+    for cfg in cfgs:
+        semantic = cfg.data.feat_dim == 13
+        batch = s3d_batch if semantic else s3dis_batch
+        n = batch["xyz"].shape[1]
+        # (a) one training step at full width
+        fwd, step = per_block(cfg)
+        model = build_model(cfg, None, "cpu")
+        for name, sn, k, f, dt in gather_shapes(model, cfg):
+            if widest is None or f > widest[3]:
+                widest = (f"{cfg.model} {name}", sn, k, f)
+        trainer = Trainer(cfg, device="cuda")
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        log(f"[family] {cfg.model}: {trainer.num_params} params, launches "
+            f"per block {fwd} forward, {step} training step")
+        (state, m), counts, secs = run_path(
+            f"{cfg.model} train step ({TRAIN_BLOCKS} x {n} points)",
+            lambda: trainer.train_step(state, batch),
+            times(step, TRAIN_BLOCKS))
+        total = plus(total, counts)
+        loss = float(m["loss"])
+        check(math.isfinite(loss) and int(m["skipped"]) == 0,
+              f"{cfg.model} train step loss {loss}")
+        log(f"[family] {cfg.model}: train step loss {loss:.5f} in "
+            f"{secs:.2f} s (first step, build included) [{card}]")
+        # (b) float32 forward, card vs CPU, on the batch's first block
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            mdl = build_model(f32, torch.Generator().manual_seed(0), dev)
+            with torch.inference_mode():
+                logits[dev] = mdl(*(torch.from_numpy(batch[key][0]).to(dev)
+                                    for key in ("xyz", "feats", "mask"))
+                                  ).cpu()
+        agree = float((logits["cuda"].argmax(1) == logits["cpu"].argmax(1))
+                      .double().mean())
+        log(f"[family] {cfg.model} float32 logits card vs CPU: argmax "
+            f"agreement {agree:.6f} (need >= {PARITY_ARGMAX_MIN}), max |d| "
+            f"{(logits['cuda'] - logits['cpu']).abs().max():.3e} [{card}]")
+        check(agree >= PARITY_ARGMAX_MIN,
+              f"{cfg.model} argmax agreement {agree}")
+        del trainer, state, m
+
+    # (c) the train CLI on Semantic3D block pkls
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_s3d_")
+    try:
+        semantic3d.save_blocks(os.path.join(tmp, "pkl", "scan0.pkl"), blocks)
+        fwd, step = per_block(semantic3d_config())
+        nblk = len(blocks)
+        _, counts, secs = run_path(
+            f"train CLI semantic3d --data-dir ({nblk} blocks, batches of "
+            f"{TRAIN_BLOCKS} x {SEM3D_POINTS} points)",
+            lambda: cli.main([
+                "--config", "semantic3d", "--data-dir",
+                os.path.join(tmp, "pkl"), "--epochs", "1", "--batch-size",
+                str(TRAIN_BLOCKS), "--metrics-file",
+                os.path.join(tmp, "s3d.jsonl")]),
+            plus(times(step, nblk), times(fwd, nblk)))
+        total = plus(total, counts)
+        rec, = read_records(os.path.join(tmp, "s3d.jsonl"))
+        check(set(rec) == METRICS_KEYS, f"metrics record keys {sorted(rec)}")
+        check(math.isfinite(rec["train_loss"]), f"semantic3d loss {rec}")
+        check(len(rec["iou"]) == 8, f"semantic3d classes {len(rec['iou'])}")
+        log(f"[family] train CLI semantic3d: train loss "
+            f"{rec['train_loss']:.5f}, test mIoU {rec['miou']:.4f}, "
+            f"{rec['points_per_sec']:.1f} train points/s (host-bound) "
+            f"[{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) K2 and K3 at the new extreme widths: the pre-stage's 13-column
+    # rows (float32: 52 B, and bf16: 26 B) and the widest row of the five
+    tile = window = 256
+    s = tile + 2 * window
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    pre = semantic3d_config().data
+    cases = [("pre-stage f32", pre.caps[0], 16, pre.feat_dim, torch.float32),
+             ("pre-stage bf16", pre.caps[0], 16, pre.feat_dim,
+              torch.bfloat16),
+             (f"widest ({widest[0]})", widest[1], widest[2], widest[3],
+              torch.bfloat16)]
+    k2_rows, k3_rows = [], []
+    for name, n, k, f, dtype in cases:
+        lidx = torch.randint(0, s, (n, k), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        lidx[:, 0] = 0
+        lidx[:, -1] = s - 1
+        lidx[::3, 1] = 7
+        feats = torch.randn((n, f), generator=gen, device="cuda").to(dtype)
+        k2_rows.append(k2_case(name, feats, lidx, window, tile, card))
+        g = torch.randn((n, k, f), generator=gen, device="cuda").to(dtype)
+        k3_rows.append(k3_case(name, g, lidx, window, tile, card))
+    return total, k2_rows, k3_rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1120,6 +1419,12 @@ def main() -> int:
     t9 = time.perf_counter()
     entry_launches = phase_entry_points(card)
     log(f"[entry] phase 9 in {time.perf_counter() - t9:.1f} s")
+    t10 = time.perf_counter()
+    family_launches, k2_family, k3_family = phase_family(card)
+    log(f"[family] phase 10 in {time.perf_counter() - t10:.1f} s")
+    rows += k2_family
+    drows += k3_family
+    entry_launches = plus(entry_launches, family_launches)
 
     main_row = next(r for r in rows if r["name"].endswith("conv"))
     dmain, fmain = drows[0], frows[0]
@@ -1130,8 +1435,8 @@ def main() -> int:
         f"{dmain['dtype']} (slab gradient: map and sum kernels; the map "
         f"alone in its own row) and {fmain['name']} "
         f"{fmain['dtype']} (fused conv); launches are the serve sweep's plus "
-        f"one training step's and the entry points', and the fused-conv "
-        f"bench's; eval {pps:.1f} "
+        f"one training step's, the entry points' and the PointNet family's, "
+        f"and the fused-conv bench's; eval {pps:.1f} "
         f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "
         f"GiB")
     timing = ("ms", "plain_ms", "bound_ms", "bound_by")

@@ -77,9 +77,25 @@ def scannet_config(**overrides) -> TrainConfig:
     return _replace(base, overrides)
 
 
+def semantic3d_config(**overrides) -> TrainConfig:
+    """The Semantic3D preset: 10 m blocks, rgb + intensity + covariance
+    features.  Its scans label 0 unlabeled and 1..8 the 8 classes
+    (``data/semantic3d.py``), so label 0 is ignored and the rest shifted by
+    -1, as for ScanNet.  The JAX preset has no ignore label: it trains label
+    0 as class 0 and drops class 8 (ROADMAP.md §3)."""
+    base = TrainConfig(
+        model="pointnet_semantic3d",
+        data=DataConfig(num_points=10240, num_classes=8, block_size=10.0,
+                        voxel_sizes=(0.25, 0.75), caps=(5120, 1280),
+                        feat_dim=13, ignore_label=0),
+        optim=OptimConfig(epoch_steps=2000, decay_epoch=50))
+    return _replace(base, overrides)
+
+
 CONFIGS = {
     "s3dis": s3dis_config,
     "scannet": scannet_config,
+    "semantic3d": semantic3d_config,
 }
 
 

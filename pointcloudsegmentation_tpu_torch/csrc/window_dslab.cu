@@ -26,9 +26,12 @@
 //        no warp vote decides a position, so the order is a function of
 //        lidx alone.
 //   sum  one warp per (tile, slab row) sums its bucket's g rows in float32
-//        in ascending slot order and stores the row once.  Every load of
-//        the warp is one whole 128-byte piece of a g row, and a batch of up
-//        to 32 rows is in flight at once.
+//        in ascending slot order and stores the row once.  The rows are
+//        copied by cp.async into shared memory, a batch of up to 32 rows in
+//        flight at once, in pieces of 16 bytes where rows are whole 16-byte
+//        words (every load of the warp then is one whole 128-byte piece of
+//        a g row), else of 8 or 4; only a bf16 row of odd width is loaded
+//        element by element.
 //
 // Every output element is written by exactly one thread in a fixed order, so
 // two runs give bitwise-equal output, equal to the plain PyTorch version's
@@ -238,11 +241,19 @@ __device__ __forceinline__ __nv_bfloat16 pack<__nv_bfloat16, __nv_bfloat16>(
   return __float2bfloat16_rn(v[0]);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
+// One asynchronous copy of B = 16, 8 or 4 bytes from global to shared
+// memory (16 bypasses L1; the smaller sizes must go through it).
+template <int B>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (B == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(B)
+                 : "memory");
 }
 
 // One warp per (tile, slab row) bucket.  The bucket's slots go in batches
@@ -250,10 +261,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 // rows (one pass of up to 512 bytes of each) are copied into the warp's
 // ring in shared memory, two batches in flight, and then summed: lane l
 // owns the words l, l+32, ... of the pass and adds the batch's rows into
-// its float32 sums in ascending slot order.  ASYNC: rows are whole 16-byte
-// words and g is aligned, so the copies are 16-byte cp.async and a word is
-// 4 bytes; else plain element loads.
-template <typename T, typename Wd, bool ASYNC>
+// its float32 sums in ascending slot order.  PIECE > 0: rows are whole
+// PIECE-byte pieces (16, 8 or 4: the largest that divides the row and g's
+// alignment), so the copies are PIECE-byte cp.async and a word is 4 bytes;
+// PIECE 0 (a bf16 row of odd width): plain element loads, one row at a
+// time, with nothing in flight.
+template <typename T, typename Wd, int PIECE>
 __global__ void __launch_bounds__(kSumWarps * 32)
 window_dslab_sum_kernel(const T* __restrict__ g, const int* __restrict__ start,
                         const int* __restrict__ order, T* __restrict__ dslab,
@@ -287,17 +300,17 @@ window_dslab_sum_kernel(const T* __restrict__ g, const int* __restrict__ start,
     auto fetch = [&](int batch, int slot) {
       Wd* dst = ring + (batch % kStages) * kBatch * cmax;
       const int nr = min(kBatch, b - a - batch * kBatch);
-      if constexpr (ASYNC) {
-        // 16-byte pieces: lane's (row, piece) steps by constants
-        const int pv = cw * (int)sizeof(Wd) / 16;
+      if constexpr (PIECE > 0) {
+        // PIECE-byte pieces: lane's (row, piece) steps by constants
+        const int pv = cw * (int)sizeof(Wd) / PIECE;
         const int dj = 32 / pv, dc = 32 - dj * pv;
         int j = lane / pv, c = lane - j * pv;
         for (int p = lane; p < kBatch * pv; p += 32) {
           const int sl = __shfl_sync(0xffffffffu, slot, j);
           if (j < nr)
-            cp_async16(reinterpret_cast<char*>(dst + j * cw) + c * 16,
-                       reinterpret_cast<const char*>(gt + sl * rw + c0) +
-                           c * 16);
+            cp_async<PIECE>(
+                reinterpret_cast<char*>(dst + j * cw) + c * PIECE,
+                reinterpret_cast<const char*>(gt + sl * rw + c0) + c * PIECE);
           j += dj;
           c += dc;
           if (c >= pv) {
@@ -321,7 +334,7 @@ window_dslab_sum_kernel(const T* __restrict__ g, const int* __restrict__ start,
       fetch(batch, slot_of(batch));
     int next = slot_of(kStages);
     for (int batch = 0; batch < nb; ++batch) {
-      if constexpr (ASYNC) {
+      if constexpr (PIECE > 0) {
         // the batch's group is done when at most the later ones pend
         if (nb - batch >= kStages)
           asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1)
@@ -355,7 +368,7 @@ window_dslab_sum_kernel(const T* __restrict__ g, const int* __restrict__ start,
   }
 }
 
-template <typename T, typename Wd, bool ASYNC>
+template <typename T, typename Wd, int PIECE>
 int launch_sum(const void* g, const int* start, const int* order, void* dslab,
                int buckets, int tk, int s, int f, cudaStream_t stream) {
   const int rw = f / (int)(sizeof(Wd) / sizeof(T));
@@ -363,11 +376,11 @@ int launch_sum(const void* g, const int* start, const int* order, void* dslab,
   const size_t smem = (size_t)kSumWarps * kStages * kBatch *
                       (rw < pass_words ? rw : pass_words) * sizeof(Wd);
   const cudaError_t err = cudaFuncSetAttribute(
-      window_dslab_sum_kernel<T, Wd, ASYNC>,
+      window_dslab_sum_kernel<T, Wd, PIECE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (buckets + kSumWarps - 1) / kSumWarps;
-  window_dslab_sum_kernel<T, Wd, ASYNC><<<blocks, kSumWarps * 32, smem,
+  window_dslab_sum_kernel<T, Wd, PIECE><<<blocks, kSumWarps * 32, smem,
                                           stream>>>(
       static_cast<const T*>(g), start, order, static_cast<T*>(dslab), tk, s,
       f, buckets);
@@ -381,13 +394,21 @@ int dispatch_sum(const void* g, const int* start, const int* order,
   const long long buckets = (long long)nt * s;
   if (buckets * f >= (1ll << 31) || (long long)tk * f >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
-  // 16-byte copies and 4-byte words where rows are whole 16-byte words
+  // cp.async pieces of 16, 8 or 4 bytes and 4-byte words where rows are
+  // whole 4-byte words; plain element loads for odd bf16 rows
   const uintptr_t align = (uintptr_t)g | (uintptr_t)dslab;
-  if (align % 16 == 0 && f * sizeof(T) % 16 == 0)
-    return launch_sum<T, uint32_t, true>(g, start, order, dslab,
-                                         (int)buckets, tk, s, f, stream);
-  return launch_sum<T, T, false>(g, start, order, dslab, (int)buckets, tk, s,
-                                 f, stream);
+  const size_t row = (size_t)f * sizeof(T);
+  if (align % 16 == 0 && row % 16 == 0)
+    return launch_sum<T, uint32_t, 16>(g, start, order, dslab, (int)buckets,
+                                       tk, s, f, stream);
+  if (align % 8 == 0 && row % 8 == 0)
+    return launch_sum<T, uint32_t, 8>(g, start, order, dslab, (int)buckets,
+                                      tk, s, f, stream);
+  if (align % 4 == 0 && row % 4 == 0)
+    return launch_sum<T, uint32_t, 4>(g, start, order, dslab, (int)buckets,
+                                      tk, s, f, stream);
+  return launch_sum<T, T, 0>(g, start, order, dslab, (int)buckets, tk, s, f,
+                             stream);
 }
 
 bool valid_geometry(int n, int k, int tile, int window) {

@@ -1,22 +1,24 @@
 """Input pipeline of the port: its own numpy copies of the JAX package's
 data modules (``io_util``, ``augment``, ``s3dis``, ``scannet``,
-``synth_rooms``, ``toy``, ``batching``), the native host library's binding
-(``native``), and the background-thread ``Provider`` with the device
-transfer (``provider``).  ``blocks_fn_for`` and ``read_fn_for`` pick a
+``semantic3d``, ``synth_rooms``, ``toy``, ``batching``), the native host
+library's binding (``native``), and the background-thread ``Provider`` with
+the device transfer (``provider``).  ``blocks_fn_for`` and ``read_fn_for`` pick a
 config's reader of prepared pkls for the train CLI and the scene eval."""
 from functools import partial
 
-from . import io_util, s3dis, scannet
+from . import io_util, s3dis, scannet, semantic3d
 
 
 def blocks_fn_for(cfg, config_name: str):
     """(model, loaded pkl) -> block dicts for the config's dataset: S3DIS
     rooms (rgb, with the covariance features when the config's feat_dim is
-    above 3) or ScanNet scenes (geometry only)."""
+    above 3), ScanNet scenes (geometry only) or Semantic3D training blocks
+    (rgb, intensity and covariance features)."""
     return {
         "s3dis": partial(s3dis.blocks_from_room,
                          use_covars=cfg.data.feat_dim > 3),
         "scannet": scannet.blocks_from_scene,
+        "semantic3d": semantic3d.blocks_from_list,
     }[config_name]
 
 

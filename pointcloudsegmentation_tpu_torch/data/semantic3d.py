@@ -1,0 +1,125 @@
+"""Semantic3D dataset pipeline, the port's own copy of the training part of
+``pointcloudsegmentation_tpu.data.semantic3d`` (reference:
+data_util.py:50-80, semantic3d_util.py:136-295).
+
+Raw ``.txt`` scans (x y z intensity r g b + ``.labels``) -> macro blocks
+(80 m at a 0.03 m grid downsample) -> 10 m training blocks with rotation
+augmentation -> per-scan block pkls (``save_blocks``) -> the train-time read
+(``blocks_from_list``: flips and color jitter).  Labels stay raw: 0 =
+unlabeled, 1..8 the 8 classes; the port's ``semantic3d_config`` ignores
+label 0 and shifts the rest by -1 (ROADMAP.md §3)."""
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from . import augment
+from .io_util import save_pkl
+
+NUM_CLASSES = 8  # man-made terrain .. cars (class 0 = unlabeled, ignored)
+
+
+def read_points_txt(path: str, labels_path: Optional[str] = None
+                    ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """A Semantic3D .txt scan (x y z i r g b per line) as float32 [n, 7],
+    and its .labels file as int32 [n] where it exists
+    (read_semantic3d_points_file, data_util.py:50-80)."""
+    with open(path) as f:
+        pts = np.loadtxt(f, dtype=np.float32, ndmin=2)
+    labels = None
+    if labels_path and os.path.exists(labels_path):
+        labels = np.loadtxt(labels_path, dtype=np.int32)
+    return pts, labels
+
+
+def to_big_blocks(points: np.ndarray, labels: Optional[np.ndarray],
+                  block_size: float = 80.0, ds_stride: float = 0.03
+                  ) -> List[Dict]:
+    """Partition a scan into macro blocks with grid downsample
+    (semantic3d_to_block, semantic3d_util.py:136-178)."""
+    xyz = points[:, :3]
+    mins = xyz.min(0)
+    bx = np.floor((xyz[:, 0] - mins[0]) / block_size).astype(np.int64)
+    by = np.floor((xyz[:, 1] - mins[1]) / block_size).astype(np.int64)
+    key = bx * 10000 + by
+    out = []
+    for k in np.unique(key):
+        sel = np.nonzero(key == k)[0]
+        sub = points[sel]
+        keep = augment.grid_downsample(sub[:, :3], ds_stride)
+        blk = {"points": sub[keep]}
+        if labels is not None:
+            blk["labels"] = labels[sel][keep]
+        out.append(blk)
+    return out
+
+
+def sample_training_blocks(points: np.ndarray, labels: np.ndarray,
+                           block_size: float = 10.0, stride: float = 5.0,
+                           ds_stride: float = 0.06, min_pn: int = 1024,
+                           rng: Optional[np.random.RandomState] = None,
+                           rotate: bool = True,
+                           covar_nn_size: float = 0.3) -> List[Dict]:
+    """10 m training blocks with optional rotation augmentation
+    (semantic3d_sample_single_file_training_block,
+    semantic3d_util.py:279-295).  Features: rgb + intensity + covars."""
+    rng = rng or np.random.RandomState()
+    xyz = np.ascontiguousarray(points[:, :3], np.float32)
+    intensity = points[:, 3:4].astype(np.float32)
+    rgb = points[:, 4:7].astype(np.float32)
+
+    if rotate and rng.rand() > 0.3:
+        xyz = augment.rotate_z(xyz, rng.rand() * np.pi / 2.0)
+
+    ds_idx = augment.grid_downsample(xyz, ds_stride)
+    covars = augment.compute_covars(xyz, covar_nn_size, ds_idx)
+    xyz_s, rgb_s = xyz[ds_idx], rgb[ds_idx]
+    int_s, lbl_s = intensity[ds_idx], labels[ds_idx]
+
+    rel = xyz_s - xyz_s.min(0, keepdims=True)
+    crops = augment.uniform_sample_block(rel, block_size, stride,
+                                         min_pn=min_pn)
+    blocks = []
+    for c in crops:
+        x = xyz_s[c]
+        mn = x.min(0, keepdims=True).copy()
+        mn[:, :2] += block_size / 2.0
+        # intensity standardized, rgb to [-1,1]
+        # (normalize_block_hierarchy, aug_util.py:425-450)
+        it = int_s[c]
+        it = (it - it.mean()) / (it.std() + 1e-6)
+        feats = np.concatenate(
+            [rgb_s[c] / 127.5 - 1.0, it, covars[c]], 1).astype(np.float32)
+        blocks.append({"xyz": (x - mn).astype(np.float32), "feats": feats,
+                       "labels": lbl_s[c].astype(np.int32),
+                       "block_min": mn[0].astype(np.float32)})
+    return blocks
+
+
+def save_blocks(path: str, blocks: List[Dict]) -> None:
+    save_pkl(path, blocks)
+
+
+def blocks_from_list(model: str, blocks: List[Dict],
+                     rng: Optional[np.random.RandomState] = None
+                     ) -> List[Dict]:
+    """The read of a block pkl already loaded (the JAX
+    ``blocks_from_pkl``, semantic3d.py:339-358): train mode flips x and y
+    each with probability 1/2 and jitters the colors by up to 0.02."""
+    rng = rng or np.random.RandomState()
+    out = []
+    for b in blocks:
+        xyz, feats = b["xyz"], b["feats"]
+        if model == "train":
+            if rng.rand() < 0.5:
+                xyz = augment.flip(xyz, 0)
+            if rng.rand() < 0.5:
+                xyz = augment.flip(xyz, 1)
+            feats = feats.copy()
+            feats[:, :3] += rng.uniform(-0.02, 0.02, (len(feats), 3))
+        out.append({"xyz": xyz.astype(np.float32),
+                    "feats": feats.astype(np.float32),
+                    "labels": b["labels"].astype(np.int32)})
+    return out

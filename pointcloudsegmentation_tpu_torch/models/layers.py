@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import neighbors as nb
+
 
 class Dense(nn.Linear):
     """``nn.Linear`` with Glorot-uniform weights and zero bias (the JAX
@@ -55,12 +57,16 @@ def init_glorot_(module: nn.Module, generator: torch.Generator) -> None:
 
 class GrowthMLP(nn.Module):
     """Concat-growth MLP: each hidden layer's relu output is concatenated
-    onto the running features (new first), then a linear projection."""
+    onto the running features, then a linear projection.  The new columns
+    go first (pointnet_conv/mlp) or, with ``new_first=False``, last
+    (pointnet_deconv, model_pointnet.py:91-94)."""
 
     def __init__(self, in_dim: int, dims: Sequence[int], out_dim: int,
+                 new_first: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_hidden = len(dims)
+        self.new_first = new_first
         w = in_dim
         for i, d in enumerate(dims):
             self.add_module(f"fc_{i}", Dense(w, d, dtype=dtype))
@@ -70,24 +76,52 @@ class GrowthMLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_hidden):
             c = torch.relu(getattr(self, f"fc_{i}")(x))
-            x = torch.cat([c, x], dim=-1)
+            x = torch.cat([c, x] if self.new_first else [x, c], dim=-1)
         return self.fc_out(x)
 
 
-class PointNetConv(GrowthMLP):
-    """The xyz-only PointNet conv (``pointnet_conv_nofeats``,
-    model_pointnet.py:26-39; the JAX ``PointNetConv(use_feats=False)``):
-    each slot's sxyz -> growth MLP (``fc_{i}``, new first) -> ``fc_out`` ->
-    max over the neighborhood's valid slots, 0 where no slot is valid.  It
-    reads no neighbor features, so it gathers nothing."""
+class PointNetConv(nn.Module):
+    """PointNet conv + masked max (``pointnet_conv``, model_pointnet.py:
+    10-24): each slot's edge input ``[center ‖ neighbor ‖ sxyz]`` -> MLP
+    (``fc_{i}``, ``fc_out``) -> max over the neighborhood's valid slots,
+    windowed and overflow, 0 where no slot is valid.
 
-    def __init__(self, fc_dims: Sequence[int], out_dim: int,
+    ``concat_growth=False`` gives the plain MLP (``pointnet_conv_noconcat``,
+    :41-54); ``use_feats=False`` the xyz-only conv, whose edge input is
+    sxyz alone (``pointnet_conv_nofeats``, :26-39) and which gathers
+    nothing.  The rows are gathered in the compute dtype (the cast commutes
+    with the gather, and each Dense casts to it anyway), the windowed slots
+    of a WindowedNeighborhood through the window-gather kernel."""
+
+    def __init__(self, in_dim: int, fc_dims: Sequence[int], out_dim: int,
+                 concat_growth: bool = True, use_feats: bool = True,
                  dtype: Optional[torch.dtype] = None):
-        super().__init__(3, fc_dims, out_dim, dtype=dtype)
+        super().__init__()
+        self.concat_growth = concat_growth
+        self.use_feats = use_feats
+        self.dtype = dtype
+        self.n_hidden = len(fc_dims)
+        w = 2 * in_dim + 3 if use_feats else 3
+        for i, d in enumerate(fc_dims):
+            self.add_module(f"fc_{i}", Dense(w, d, dtype=dtype))
+            w = w + d if concat_growth else d
+        self.fc_out = Dense(w, out_dim, dtype=dtype)
 
-    def forward(self, sxyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """sxyz [N, K, 3] (already rescaled), mask [N, K] -> [N, out]."""
-        out = super().forward(sxyz)
+    def forward(self, sxyz: torch.Tensor, feats: Optional[torch.Tensor],
+                nbr) -> torch.Tensor:
+        """sxyz [N, K, 3] (already rescaled), feats [N, F] (None for the
+        xyz-only conv), nbr a Neighborhood or WindowedNeighborhood ->
+        [N, out]."""
+        x = sxyz
+        if self.use_feats:
+            feats = feats.to(self.dtype or feats.dtype)
+            x = torch.cat([nb.neighbor_concat(feats, nbr),
+                           sxyz.to(feats.dtype)], dim=-1)
+        for i in range(self.n_hidden):
+            c = torch.relu(getattr(self, f"fc_{i}")(x))
+            x = torch.cat([c, x], dim=-1) if self.concat_growth else c
+        out = self.fc_out(x)
+        mask = nbr.mask
         best = torch.where(mask[..., None], out,
                            torch.full_like(out, -1e30)).amax(dim=1)
         return torch.where(mask.any(dim=1)[:, None], best,
@@ -119,20 +153,31 @@ class PointNetPoolMLP(nn.Module):
 
 
 class SegClassifier(nn.Module):
-    """Segmentation head (``classifier_v3``) on the encoder's factored head:
-    the input already is the first Dense's pre-activation (head_dim wide),
-    so relu -> concat(local) -> dropout -> Dense(256) -> relu -> concat ->
-    dropout -> logits (the JAX ``SegClassifier(premixed=True)``).  Dropout
-    (rate 0.3) runs only with ``train=True`` and draws from the given
-    generator."""
+    """Segmentation head (``classifier_v3``): Dense(512) -> relu ->
+    concat(local) -> dropout -> Dense(256) -> relu -> concat -> dropout ->
+    logits.  With ``premixed`` (the JAX ``SegClassifier(premixed=True)``)
+    the input already is the first Dense's pre-activation (the encoder's
+    factored head, 512 wide), so there is no ``class_mlp1``; without it
+    ``class_mlp1`` maps the encoder's wide decoder output (``in_dim``) to
+    512.  Dropout (rate 0.3) runs only with ``train=True`` and draws from
+    the given generator."""
+
+    DIMS = (512, 256)   # the widths of class_mlp1 and class_mlp2
 
     def __init__(self, num_classes: int, in_dim: int, pfeat_dim: int,
-                 hidden: int = 256, dropout_rate: float = 0.3,
+                 premixed: bool = True, dropout_rate: float = 0.3,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
+        d1, d2 = self.DIMS
+        if premixed and in_dim != d1:
+            raise ValueError(f"a premixed head takes {d1} columns, got "
+                             f"{in_dim}")
+        self.premixed = premixed
         self.dropout_rate = dropout_rate
-        self.class_mlp2 = Dense(in_dim + pfeat_dim, hidden, dtype=dtype)
-        self.class_mlp3 = Dense(hidden + pfeat_dim, num_classes, dtype=dtype)
+        if not premixed:
+            self.class_mlp1 = Dense(in_dim, d1, dtype=dtype)
+        self.class_mlp2 = Dense(d1 + pfeat_dim, d2, dtype=dtype)
+        self.class_mlp3 = Dense(d2 + pfeat_dim, num_classes, dtype=dtype)
 
     def _dropout(self, x: torch.Tensor,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -145,6 +190,8 @@ class SegClassifier(nn.Module):
     def forward(self, feats: torch.Tensor, pfeats: torch.Tensor,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.premixed:
+            feats = self.class_mlp1(feats)
         x = torch.cat([torch.relu(feats), pfeats], dim=-1)
         if train:
             x = self._dropout(x, generator)

@@ -1,16 +1,20 @@
 """PointNet-conv segmentation encoder (mirror of
-``pointcloudsegmentation_tpu.models.pointnet`` for the flagship and its
-ScanNet variant: the concat decoder with the factored head, fast convs fed
-by the search's sxyz, the xyz-only first conv).
+``pointcloudsegmentation_tpu.models.pointnet``'s ``PointNetSegEncoder`` and
+its archs: the flagship, ScanNet, the two Semantic3D nets, the noconcat
+baseline, the deconv net and the embed-only ablation).
 
 Per stage (= pyramid level): one shared multi-band search, then each conv
-(optional fc_embed bottleneck -> PointNetConvFast -> concat growth, or an
-xyz-only PointNetConv whose output replaces the features); between stages a
-voxel pool block; a global growth MLP at the top; the factored head
-projects each stage at its own level and unpools head_dim-wide sums."""
+(optional fc_embed bottleneck -> PointNetConvFast, or the plain-MLP
+PointNetConv of a noconcat spec -> concat growth; or an xyz-only
+PointNetConv whose output replaces the features); between stages a voxel
+pool block; a global growth MLP at the top.  Semantic3D's pre-stage runs a
+conv on level 1 and prepends its unpooled output to the level-0 features.
+The decoder unpools back down: with ``head_dim`` the factored head projects
+each stage at its own level and unpools head_dim-wide sums; without it the
+encoder returns the wide concat (or deconv) decoder output."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -35,6 +39,9 @@ class ConvSpec:
     fc_dims: Tuple[int, ...] = (8, 8, 16)
     out: int = 32
     nofeats: bool = False             # xyz-only first conv (scannet variant)
+    # plain-MLP edge stack without the growth concat
+    # (pointnet_conv_noconcat, model_pointnet.py:41-54)
+    noconcat: bool = False
 
 
 @dataclass(frozen=True)
@@ -47,13 +54,33 @@ class StageSpec:
 
 
 @dataclass(frozen=True)
+class PreStageSpec:
+    """Semantic3D 'stage_pre': a conv on level 1 whose output is unpooled
+    and concatenated onto the level-0 features
+    (model_pointnet_semantic3d.py:119-127)."""
+
+    radius: float
+    k: int
+    rescale: float
+    fc_dims: Tuple[int, ...] = (16, 16, 16)
+    out: int = 32
+
+
+@dataclass(frozen=True)
 class Arch:
     stages: Tuple[StageSpec, ...]
     global_dims: Tuple[int, ...] = (32, 32, 48)
     global_out: int = 128
+    pre_stage: Optional[PreStageSpec] = None
     # ScanNet has no input features, hence no avg-pooled raw-feature cascade
     # (model_pointnet.py:1440 signature vs :930-933)
     use_avg_feats: bool = True
+    # decoder: "concat" = unpool-concat (model_pointnet.py:1030-1036);
+    # "deconv" = per-level growth-MLP refinement of [up ‖ stage ‖ dxyz]
+    # (pointnet_deconv, model_pointnet.py:87-104, :620-636)
+    decoder: str = "concat"
+    deconv_dims: Tuple[Tuple[int, ...], ...] = ((128, 128), (64, 128))
+    deconv_out: int = 256
 
 
 # pointnet_13_dilated_embed (model_pointnet.py:930-1037), as in the JAX
@@ -111,6 +138,152 @@ SCANNET_ARCH = Arch(
 )
 
 
+# pointnet_10_concat_pre_embed_semantic3d
+# (model_pointnet_semantic3d.py:114-213): 10 m blocks, larger radii, a
+# level-1 pre-stage conv unpooled onto level 0, fc_embed before every conv.
+SEMANTIC3D_ARCH = Arch(
+    pre_stage=PreStageSpec(radius=0.6, k=16, rescale=0.6,
+                           fc_dims=(16, 16, 16), out=32),
+    stages=(
+        StageSpec(rescale=1.0, convs=(
+            # per-conv radii differ within the stage -> rescale encoded via
+            # per-conv radius (sxyz /= radius): 0.3 then 0.2
+            ConvSpec(radius=0.3, k=16, embed=16, fc_dims=(4, 4, 8), out=16),
+            ConvSpec(radius=0.3, k=16, embed=16, fc_dims=(4, 4, 8), out=16),
+            ConvSpec(radius=0.2, k=12, embed=32, fc_dims=(8, 8, 16), out=32),
+            ConvSpec(radius=0.2, k=12, embed=32, fc_dims=(8, 8, 16), out=32),
+        ), pool_fc_dims=(8, 8, 16), pool_out=24),
+        StageSpec(rescale=1.0, convs=(
+            ConvSpec(radius=0.6, k=16, embed=48, fc_dims=(8, 8, 16), out=32),
+            ConvSpec(radius=0.6, k=16, embed=48, fc_dims=(8, 8, 16), out=32),
+            ConvSpec(radius=0.4, k=12, embed=64, fc_dims=(16, 16, 24),
+                     out=48),
+            ConvSpec(radius=0.4, k=12, embed=96, fc_dims=(16, 16, 32),
+                     out=64),
+        ), pool_fc_dims=(16, 16, 16), pool_out=48),
+        StageSpec(rescale=1.0, convs=(
+            ConvSpec(radius=2.0, k=24, embed=128, fc_dims=(32, 32, 32),
+                     out=96),
+            ConvSpec(radius=2.0, k=24, embed=160, fc_dims=(32, 32, 64),
+                     out=128),
+        ), pool_fc_dims=None),
+    ),
+    global_dims=(32, 32, 64), global_out=128,
+)
+
+
+# pointnet_13_dilate_embed_semantic3d (model_pointnet_semantic3d.py:327-441):
+# the dilated-annulus S3DIS recipe at Semantic3D scale — stage rescales
+# 0.3/1.25/4.0 (every conv in a stage divides sxyz by the same constant),
+# K caps from the reference's avg-count comments (22/20/16/18; 22; 14).
+SEMANTIC3D_DILATE_ARCH = Arch(
+    stages=(
+        StageSpec(rescale=0.3, convs=(
+            ConvSpec(radius=0.3, k=24, embed=32, fc_dims=(8, 8, 16), out=32),
+            ConvSpec(radius=0.4, min_radius=0.3, k=20, embed=32,
+                     fc_dims=(8, 8, 16), out=32),
+            ConvSpec(radius=0.3, min_radius=0.2, k=16, embed=32,
+                     fc_dims=(8, 8, 16), out=32),
+            ConvSpec(radius=0.2, k=18, embed=32, fc_dims=(8, 8, 16), out=32),
+        ), pool_fc_dims=(8, 8, 16), pool_out=32),
+        StageSpec(rescale=1.25, convs=(
+            ConvSpec(radius=1.25, k=22, embed=64, fc_dims=(16, 16, 32),
+                     out=64),
+            ConvSpec(radius=1.6, min_radius=1.25, k=22, embed=64,
+                     fc_dims=(12, 12, 24), out=48),
+            ConvSpec(radius=1.6, min_radius=1.25, k=22, embed=64,
+                     fc_dims=(12, 12, 24), out=48),
+            ConvSpec(radius=1.25, min_radius=0.9, k=22, embed=64,
+                     fc_dims=(12, 12, 24), out=48),
+            ConvSpec(radius=1.25, min_radius=0.9, k=22, embed=64,
+                     fc_dims=(12, 12, 24), out=48),
+            ConvSpec(radius=0.9, k=22, embed=64, fc_dims=(12, 12, 24),
+                     out=48),
+            ConvSpec(radius=0.9, k=22, embed=64, fc_dims=(12, 12, 24),
+                     out=48),
+        ), pool_fc_dims=(16, 16, 32), pool_out=64),
+        StageSpec(rescale=4.0, convs=(
+            ConvSpec(radius=4.0, k=14, embed=128, fc_dims=(32, 32, 32),
+                     out=96),
+            ConvSpec(radius=4.0, k=14, embed=160, fc_dims=(32, 32, 64),
+                     out=128),
+        ), pool_fc_dims=None),
+    ),
+    global_dims=(32, 32, 64), global_out=128,
+)
+
+
+# pointnet_20_baseline (model_pointnet.py:106-214): the no-growth ablation —
+# 20 plain-MLP convs (pointnet_conv_noconcat), two radius tiers per stage,
+# no annuli, no fc_embed.  K caps follow the flagship's per-radius choices.
+def _nc(radius, k, fc_dims, out):
+    return ConvSpec(radius=radius, k=k, fc_dims=fc_dims, out=out,
+                    noconcat=True)
+
+
+S3DIS_BASELINE20_ARCH = Arch(
+    stages=(
+        StageSpec(rescale=0.15, convs=(
+            _nc(0.15, 32, (8, 8), 8), _nc(0.15, 32, (8, 8), 8),
+            _nc(0.15, 32, (10, 12), 12), _nc(0.15, 32, (10, 12), 12),
+            _nc(0.1, 16, (16, 16), 16), _nc(0.1, 16, (16, 16), 16),
+            _nc(0.1, 16, (16, 16), 16), _nc(0.1, 16, (16, 16), 16),
+        ), pool_fc_dims=(16, 16), pool_out=64),
+        StageSpec(rescale=0.45, convs=(
+            _nc(0.6, 32, (16, 16), 16), _nc(0.6, 32, (16, 16), 16),
+            _nc(0.6, 32, (16, 16), 16), _nc(0.6, 32, (16, 16), 16),
+            _nc(0.3, 16, (24, 24), 24), _nc(0.3, 16, (24, 24), 24),
+            _nc(0.3, 16, (32, 32), 32), _nc(0.3, 16, (32, 32), 32),
+        ), pool_fc_dims=(32, 32), pool_out=128),
+        StageSpec(rescale=0.9, convs=(
+            _nc(0.9, 32, (32, 32), 32), _nc(0.9, 32, (32, 32), 32),
+            _nc(0.9, 32, (48, 48), 48), _nc(0.9, 32, (48, 48), 48),
+        ), pool_fc_dims=None),
+    ),
+    global_dims=(64, 64, 128), global_out=256,
+)
+
+
+# pointnet_10_concat_pre_deconv (model_pointnet.py:563-637): the growth-conv
+# 10-layer net (no embed, no annuli) with the DECONV decoder.
+S3DIS_CONCAT10_DECONV_ARCH = Arch(
+    stages=(
+        StageSpec(rescale=0.15, convs=(
+            ConvSpec(radius=0.15, k=32, fc_dims=(4, 4, 8), out=16),
+            ConvSpec(radius=0.15, k=32, fc_dims=(4, 4, 8), out=16),
+            ConvSpec(radius=0.1, k=16, fc_dims=(8, 8, 16), out=32),
+            ConvSpec(radius=0.1, k=16, fc_dims=(8, 8, 16), out=32),
+        ), pool_fc_dims=(16, 16), pool_out=64),
+        StageSpec(rescale=0.45, convs=(
+            ConvSpec(radius=0.6, k=32, fc_dims=(8, 8, 16), out=32),
+            ConvSpec(radius=0.6, k=32, fc_dims=(8, 8, 16), out=32),
+            ConvSpec(radius=0.3, k=16, fc_dims=(16, 16, 24), out=48),
+            ConvSpec(radius=0.3, k=16, fc_dims=(16, 16, 32), out=64),
+        ), pool_fc_dims=(32, 32), pool_out=128),
+        StageSpec(rescale=0.9, convs=(
+            ConvSpec(radius=0.9, k=32, fc_dims=(32, 32, 32), out=64),
+            ConvSpec(radius=0.9, k=32, fc_dims=(32, 32, 48), out=96),
+        ), pool_fc_dims=None),
+    ),
+    global_dims=(64, 64), global_out=256,
+    decoder="deconv", deconv_dims=((128, 128), (64, 128)), deconv_out=256,
+)
+
+
+def no_dilation(arch: Arch) -> Arch:
+    """Derive the embed-only ablation: the same net with every annulus
+    collapsed to a plain radius search (pointnet_13_embed,
+    model_pointnet.py:1236-1330, vs the dilated flagship :930-1037)."""
+    stages = tuple(
+        replace(st, convs=tuple(replace(c, min_radius=0.0)
+                                for c in st.convs))
+        for st in arch.stages)
+    return replace(arch, stages=stages)
+
+
+S3DIS_EMBED_ARCH = no_dilation(S3DIS_ARCH)
+
+
 # search settings of the JAX package's production build (train/model_zoo.py
 # build_model and PointNetSegEncoder defaults)
 CAND_K = 64          # global search candidates
@@ -121,9 +294,12 @@ HEAD_DIM = 512       # factored head width (SegClassifier's first layer)
 
 
 class PointNetSegEncoder(nn.Module):
-    """Returns (z, stage0 feats): z is the head's first Dense applied to the
-    decoder concat, computed per source at its own level (HEAD_DIM wide).
-    The input features' width is ``feat_dim``; an arch whose first conv is
+    """Returns (head input, stage0 feats).  With ``head_dim`` (the factored
+    head: every arch but the deconv one) the head input is the head's first
+    Dense applied to the decoder concat, computed per source at its own
+    level (head_dim wide); with None it is the wide decoder output
+    (``out_width`` columns), which the head's ``class_mlp1`` maps.  The
+    input features' width is ``feat_dim``; an arch whose first conv is
     xyz-only and that drops the avg-pooled cascade reads none of them, so
     any width will do there.
 
@@ -132,16 +308,26 @@ class PointNetSegEncoder(nn.Module):
     the global search."""
 
     def __init__(self, feat_dim: int, arch: Arch = S3DIS_ARCH,
+                 head_dim: Optional[int] = HEAD_DIM,
                  search_chunk: int = 1024, win_tile: int = 256,
                  win_window: int = 256, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if head_dim is not None and arch.decoder == "deconv":
+            raise ValueError("the factored head needs the linear concat "
+                             "decoder: use head_dim=None with deconv")
         self.arch = arch
+        self.head_dim = head_dim
         self.search_chunk = search_chunk
         self.win_tile = win_tile
         self.win_window = win_window
         self.dtype = dtype
         n_stages = len(arch.stages)
         w = feat_dim
+        ps = arch.pre_stage
+        if ps is not None:
+            self.feats_pre = PointNetConv(feat_dim, ps.fc_dims, ps.out,
+                                          dtype=dtype)
+            w += ps.out
         conv_idx = embed_idx = 0
         stage_widths = []
         prev_w = w
@@ -152,8 +338,8 @@ class PointNetSegEncoder(nn.Module):
                 conv_idx += 1
                 if c.nofeats:
                     # the output replaces the features (JAX :578-583)
-                    self.add_module(name, PointNetConv(c.fc_dims, c.out,
-                                                       dtype=dtype))
+                    self.add_module(name, PointNetConv(
+                        0, c.fc_dims, c.out, use_feats=False, dtype=dtype))
                     w = c.out
                     continue
                 fin = w
@@ -162,8 +348,13 @@ class PointNetSegEncoder(nn.Module):
                                     FCEmbed(w, c.embed, dtype=dtype))
                     embed_idx += 1
                     fin = c.embed
-                self.add_module(name, PointNetConvFast(fin, c.fc_dims, c.out,
-                                                       dtype=dtype))
+                if c.noconcat:
+                    conv = PointNetConv(fin, c.fc_dims, c.out,
+                                        concat_growth=False, dtype=dtype)
+                else:
+                    conv = PointNetConvFast(fin, c.fc_dims, c.out,
+                                            dtype=dtype)
+                self.add_module(name, conv)
                 w += c.out
             stage_widths.append(w)
             if s < n_stages - 1:
@@ -176,13 +367,27 @@ class PointNetSegEncoder(nn.Module):
         top = n_stages - 1
         self.add_module("global", GrowthMLP(3 + prev_w, arch.global_dims,
                                             arch.global_out, dtype=dtype))
-        self.add_module(f"head_sf{top}", Dense(stage_widths[top], HEAD_DIM,
-                                               bias=False, dtype=dtype))
-        self.head_g = Dense(arch.global_out, HEAD_DIM, bias=False, dtype=dtype)
-        for s in range(top - 1, -1, -1):
-            self.add_module(f"head_sf{s}", Dense(stage_widths[s], HEAD_DIM,
-                                                 bias=(s == 0), dtype=dtype))
         self.stage0_width = stage_widths[0]
+        if head_dim is not None:
+            self.add_module(f"head_sf{top}", Dense(
+                stage_widths[top], head_dim, bias=False, dtype=dtype))
+            self.head_g = Dense(arch.global_out, head_dim, bias=False,
+                                dtype=dtype)
+            for s in range(top - 1, -1, -1):
+                self.add_module(f"head_sf{s}", Dense(
+                    stage_widths[s], head_dim, bias=(s == 0), dtype=dtype))
+            self.out_width = head_dim
+            return
+        lw = stage_widths[top] + arch.global_out
+        for s in range(top - 1, -1, -1):
+            if arch.decoder == "deconv":
+                dd = arch.deconv_dims[min(s, len(arch.deconv_dims) - 1)]
+                self.add_module(f"deconv{s}", GrowthMLP(
+                    lw + stage_widths[s] + 3, dd, arch.deconv_out,
+                    new_first=False, dtype=dtype))
+                lw += arch.deconv_out
+            lw += stage_widths[s]
+        self.out_width = lw
 
     def _stage_neighborhoods(self, xyz: torch.Tensor, mask: torch.Tensor,
                              specs, is_sorted: bool) -> Dict:
@@ -205,6 +410,16 @@ class PointNetSegEncoder(nn.Module):
                 return_sxyz=True)
         return dict(zip(uniq, res))
 
+    def stage_specs(self, s: int):
+        """The (radius, min_radius, k) of every search at stage ``s``: its
+        convs' bands, and at stage 1 the pre-stage's (JAX :528-530)."""
+        specs = [(c.radius, c.min_radius, c.k)
+                 for c in self.arch.stages[s].convs]
+        ps = self.arch.pre_stage
+        if s == 1 and ps is not None:
+            specs.append((ps.radius, 0.0, ps.k))
+        return specs
+
     def forward(self, pyramid: Pyramid, feats: torch.Tensor):
         arch = self.arch
         n_stages = len(arch.stages)
@@ -217,15 +432,22 @@ class PointNetSegEncoder(nn.Module):
                 avg_feats.append(hier.pool_avg(avg_feats[-1], pyramid, lvl))
 
         caches = []
-        for s, stage in enumerate(arch.stages):
-            specs = [(c.radius, c.min_radius, c.k) for c in stage.convs]
+        for s in range(n_stages):
             nbrs = self._stage_neighborhoods(
-                pyramid.levels[s].xyz, pyramid.levels[s].mask, specs,
-                pyramid.level_sorted(s))
+                pyramid.levels[s].xyz, pyramid.levels[s].mask,
+                self.stage_specs(s), pyramid.level_sorted(s))
             if self.dtype is not None:
                 nbrs = {sp: (nb, sx.to(self.dtype))
                         for sp, (nb, sx) in nbrs.items()}
             caches.append(nbrs)
+
+        # Semantic3D's pre-stage: a conv on level 1's avg-pooled raw
+        # features, unpooled and prepended to level 0's (JAX :542-553)
+        ps = arch.pre_stage
+        if ps is not None:
+            nbr, sxyz = caches[1][(ps.radius, 0.0, ps.k)]
+            pre = self.feats_pre(sxyz / ps.rescale, avg_feats[1], nbr)
+            feats = torch.cat([hier.unpool(pre, pyramid, 0), feats], dim=-1)
 
         stage_feats = []
         conv_idx = embed_idx = 0
@@ -241,7 +463,7 @@ class PointNetSegEncoder(nn.Module):
                 conv = getattr(self, f"feats{conv_idx}")
                 conv_idx += 1
                 if c.nofeats:
-                    feats = conv(sxyz, nbr.mask)
+                    feats = conv(sxyz, None, nbr)
                     continue
                 fin = feats
                 if c.embed is not None:
@@ -262,8 +484,24 @@ class PointNetSegEncoder(nn.Module):
         top = n_stages - 1
         gin = torch.cat([pyramid.levels[top].xyz, prev_feats], dim=-1)
         gfc = getattr(self, "global")(gin)
-        z = getattr(self, f"head_sf{top}")(stage_feats[top]) + self.head_g(gfc)
+        if self.head_dim is not None:
+            z = getattr(self, f"head_sf{top}")(stage_feats[top]) \
+                + self.head_g(gfc)
+            for s in range(top - 1, -1, -1):
+                z = hier.unpool(z, pyramid, s) \
+                    + getattr(self, f"head_sf{s}")(stage_feats[s])
+            return z, stage_feats[0]
+
+        # the unfactored decoders (JAX :650-665): unpool-concat, or the
+        # deconv's growth MLP on [up ‖ stage feats ‖ dxyz] at each level
+        lf = torch.cat([stage_feats[top], gfc], dim=-1)
         for s in range(top - 1, -1, -1):
-            z = hier.unpool(z, pyramid, s) \
-                + getattr(self, f"head_sf{s}")(stage_feats[s])
-        return z, stage_feats[0]
+            up = hier.unpool(lf, pyramid, s)
+            if arch.decoder == "deconv":
+                din = torch.cat([up, stage_feats[s], pyramid.dxyz[s]],
+                                dim=-1)
+                upf = getattr(self, f"deconv{s}")(din)
+                lf = torch.cat([upf, up, stage_feats[s]], dim=-1)
+            else:
+                lf = torch.cat([up, stage_feats[s]], dim=-1)
+        return lf, stage_feats[0]

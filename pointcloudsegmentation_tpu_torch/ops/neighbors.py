@@ -1,5 +1,5 @@
 """Neighborhood gathers (mirror of ``pointcloudsegmentation_tpu.ops.neighbors``
-for the parts the flagship's training and inference paths run).
+for the parts the PointNet family's training and inference paths run).
 
 The windowed slots go through ``WindowGather`` (``kernels/window_gather.py``):
 the window-gather kernel forward and the slab-gradient kernel plus a dense
@@ -58,3 +58,11 @@ def gather_neighbors(feats: torch.Tensor, nbr) -> torch.Tensor:
             return win
         return torch.cat([win, _pool_gather(feats, nbr)], dim=1)
     return feats[nbr.idx.long()]
+
+
+def neighbor_concat(feats: torch.Tensor, nbr) -> torch.Tensor:
+    """Per-slot ``[center ‖ neighbor]`` (the reference's
+    ``graph_concat_scatter``, tf_ops/graph_conv_layer.py:788-792):
+    [N, F] -> [N, K(+Ko), 2F]."""
+    neigh = gather_neighbors(feats, nbr)
+    return torch.cat([feats[:, None, :].expand_as(neigh), neigh], dim=-1)

@@ -7,11 +7,14 @@ Examples:
       --data-dir data/S3DIS/sampled_train --epochs 100
   python -m pointcloudsegmentation_tpu_torch.train.cli --config s3dis \
       --synthetic --epochs 2 --steps-per-epoch 50   # no dataset required
+  python -m pointcloudsegmentation_tpu_torch.train.cli --config semantic3d \
+      --data-dir data/Semantic3D/sampled_train   # semantic3d.save_blocks pkls
 
 It runs on the card (``--device cuda``) unless ``--device cpu`` is given,
-and raises where there is no card.  The JAX CLI's ``semantic3d`` and
-``modelnet40`` configs, ``--use-diffusion`` and the device mesh
-(``--no-mesh``) are not ported yet (ROADMAP.md).
+and raises where there is no card.  The JAX CLI's ``modelnet40`` config,
+its ``dense_semantic3d`` and ``context_semantic3d`` readers,
+``--use-diffusion`` and the device mesh (``--no-mesh``) are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 

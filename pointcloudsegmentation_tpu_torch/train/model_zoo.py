@@ -1,6 +1,6 @@
 """Model registry: config key -> end-to-end module (Morton sort + pyramid +
 encoder + head), mirroring ``pointcloudsegmentation_tpu.train.model_zoo``
-for the keys ``pointnet_s3dis``, ``pointnet_scannet`` and ``tiny_s3dis``."""
+for its ``PointNetSegEncoder`` keys (``_ARCHS``) and ``tiny_s3dis``."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -10,8 +10,12 @@ from torch import nn
 
 from ..config import TrainConfig
 from ..models.layers import SegClassifier, init_glorot_
-from ..models.pointnet import (HEAD_DIM, S3DIS_ARCH, SCANNET_ARCH, Arch,
-                               ConvSpec, PointNetSegEncoder, StageSpec)
+from ..models.pointnet import (HEAD_DIM, S3DIS_ARCH,
+                               S3DIS_BASELINE20_ARCH,
+                               S3DIS_CONCAT10_DECONV_ARCH, S3DIS_EMBED_ARCH,
+                               SCANNET_ARCH, SEMANTIC3D_ARCH,
+                               SEMANTIC3D_DILATE_ARCH, Arch, ConvSpec,
+                               PointNetSegEncoder, StageSpec)
 from ..ops import hierarchy as hier
 from ..ops import morton
 
@@ -20,15 +24,20 @@ _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 class SegmentationModel(nn.Module):
     """Per-block pipeline: Morton sort -> voxel pyramid -> encoder -> head
-    -> per-point logits in the caller's point order."""
+    -> per-point logits in the caller's point order.  The head is sized
+    from what the encoder returns: premixed on the factored head's
+    head_dim columns, else with ``class_mlp1`` on the wide decoder
+    output."""
 
     def __init__(self, encoder: PointNetSegEncoder, num_classes: int,
                  voxel_sizes: Tuple[float, ...], caps: Tuple[int, ...],
                  block_size: float, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.encoder = encoder
-        self.head = SegClassifier(num_classes, HEAD_DIM,
-                                  encoder.stage0_width, dtype=dtype)
+        self.head = SegClassifier(num_classes, encoder.out_width,
+                                  encoder.stage0_width,
+                                  premixed=encoder.head_dim is not None,
+                                  dtype=dtype)
         self.voxel_sizes = tuple(voxel_sizes)
         self.caps = tuple(caps)
         self.block_size = block_size
@@ -62,7 +71,13 @@ def tiny_arch() -> Arch:
 
 
 _ARCHS = {"pointnet_s3dis": lambda: S3DIS_ARCH,
-          "pointnet_scannet": lambda: SCANNET_ARCH, "tiny_s3dis": tiny_arch}
+          "pointnet_scannet": lambda: SCANNET_ARCH,
+          "pointnet_semantic3d": lambda: SEMANTIC3D_ARCH,
+          "pointnet_semantic3d_dilate": lambda: SEMANTIC3D_DILATE_ARCH,
+          "pointnet_baseline20": lambda: S3DIS_BASELINE20_ARCH,
+          "pointnet_concat10_deconv": lambda: S3DIS_CONCAT10_DECONV_ARCH,
+          "pointnet_embed_only": lambda: S3DIS_EMBED_ARCH,
+          "tiny_s3dis": tiny_arch}
 
 
 def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
@@ -72,7 +87,9 @@ def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
     gets the same weights) or zeros without one, e.g. before loading a
     converted state_dict.  The model lives on ``device``: the card unless
     the caller asks for the CPU.  ``encoder_kw`` override PointNetSegEncoder
-    settings (win_tile, win_window, search_chunk)."""
+    settings (win_tile, win_window, search_chunk).  The head is factored
+    (head_dim 512, premixed) unless the arch's decoder is the deconv, as
+    the JAX build_model factors it (train/model_zoo.py:346-353)."""
     if cfg.model not in _ARCHS:
         raise KeyError(f"unknown model '{cfg.model}'; ported: "
                        f"{sorted(_ARCHS)}")
@@ -80,8 +97,11 @@ def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
         raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
     dtype = _DTYPES[cfg.compute_dtype]
     d = cfg.data
-    enc = PointNetSegEncoder(d.feat_dim, arch=_ARCHS[cfg.model](),
-                             dtype=dtype, **encoder_kw)
+    arch = _ARCHS[cfg.model]()
+    enc = PointNetSegEncoder(
+        d.feat_dim, arch=arch,
+        head_dim=None if arch.decoder == "deconv" else HEAD_DIM,
+        dtype=dtype, **encoder_kw)
     model = SegmentationModel(enc, d.num_classes, d.voxel_sizes, d.caps,
                               d.block_size, dtype=dtype)
     if generator is not None:

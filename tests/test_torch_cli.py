@@ -4,7 +4,8 @@ JAX CLI's metrics record, ``--restore --eval`` reproducing the epoch's test
 metrics, training from prepared room pkls, the feature ablations against
 the JAX CLI's, the scene eval on synthetic blocks and on a prepared room
 (with the 12-feature checkpoint), and one epoch of the training-curve
-run."""
+run; ``--config semantic3d`` on Semantic3D block pkls, the scene eval's
+refusal of it, and its ignore label against the JAX preset's."""
 import dataclasses
 import json
 
@@ -13,10 +14,17 @@ import pytest
 import torch
 
 from pointcloudsegmentation_tpu.train import cli as jcli
+from pointcloudsegmentation_tpu.train.config import \
+    semantic3d_config as jsemantic3d_config
 from pointcloudsegmentation_tpu.train.loop import Trainer as JTrainer
+from pointcloudsegmentation_tpu.train.loop import \
+    seg_loss_terms as jseg_loss_terms
 from pointcloudsegmentation_tpu_torch import interpolate, parity_ab
-from pointcloudsegmentation_tpu_torch.data import s3dis, synth_rooms
+from pointcloudsegmentation_tpu_torch.config import semantic3d_config
+from pointcloudsegmentation_tpu_torch.data import (s3dis, semantic3d,
+                                                   synth_rooms)
 from pointcloudsegmentation_tpu_torch.train import cli
+from pointcloudsegmentation_tpu_torch.train.loop import seg_loss_terms
 
 torch.set_num_threads(1)
 
@@ -231,3 +239,116 @@ def test_parity_ab_one_epoch(tmp_path):
     assert arm["final_miou"] == arm["curve"][0]["miou"]
     assert np.isfinite(arm["curve"][0]["last_train_loss"])
     assert saved["config"]["train_rooms"] == 1 and "card" not in saved
+
+
+def test_build_cfg_semantic3d_differs_from_jax_only_in_ignore_label():
+    """``--config semantic3d`` builds the JAX CLI's config but for the
+    ignore label, which the port sets to 0 (ROADMAP.md §3)."""
+    argv = ["--config", "semantic3d", "--epochs", "2"]
+    got = cli.build_cfg(cli.parse_args(argv))
+    want = jcli.build_cfg(jcli.parse_args(argv))
+    assert got.model == want.model == "pointnet_semantic3d"
+    assert got.data.ignore_label == 0 and want.data.ignore_label is None
+    got = dataclasses.replace(
+        got, data=dataclasses.replace(got.data, ignore_label=None))
+    for name, value in _fields(got).items():
+        if dataclasses.is_dataclass(value):
+            assert _fields(value) == _fields(getattr(want, name)), name
+        else:
+            assert value == getattr(want, name), name
+
+
+def test_semantic3d_labels_ignore_unlabeled_and_keep_cars():
+    """Semantic3D labels 0 unlabeled and 1..8 its 8 classes.  Under the JAX
+    preset (8 classes, no ignore label) the loss counts label 0 as class 0
+    and drops label 8 (cars); under the port's (ignore label 0) it drops
+    label 0 and counts label 8 as class 7."""
+    labels = np.arange(9, dtype=np.int32).repeat(3)
+    mask = np.ones(len(labels), bool)
+    logits = np.random.RandomState(0).randn(len(labels), 8).astype(
+        np.float32)
+    jd = jsemantic3d_config().data
+    assert jd.num_classes == 8 and jd.ignore_label is None
+    _, jw, jlab, jvalid = jseg_loss_terms(logits, labels, mask, None,
+                                          jd.ignore_label)
+    jvalid = np.asarray(jvalid)
+    assert jvalid[labels == 0].all() and not jvalid[labels == 8].any()
+    assert float(jw) == 24.0
+
+    td = semantic3d_config().data
+    assert td.num_classes == 8 and td.ignore_label == 0
+    _, tw, tlab, tvalid = seg_loss_terms(
+        torch.from_numpy(logits), torch.from_numpy(labels),
+        torch.from_numpy(mask), None, td.ignore_label)
+    tvalid = tvalid.numpy()
+    assert not tvalid[labels == 0].any() and tvalid[labels == 8].all()
+    assert float(tw) == 24.0
+    np.testing.assert_array_equal(tlab.numpy()[tvalid],
+                                  labels[tvalid] - 1)
+    assert tlab.numpy()[labels == 8].tolist() == [7, 7, 7]
+
+
+def _scan(seed):
+    """A small Semantic3D-like scan over 22 x 18 m: x y z intensity r g b
+    and labels 0..8."""
+    rng = np.random.RandomState(seed)
+    n = 6000
+    pts = np.concatenate([
+        rng.uniform(0, 22, (n, 1)), rng.uniform(0, 18, (n, 1)),
+        rng.uniform(0, 3, (n, 1)), rng.uniform(-2000, 2000, (n, 1)),
+        rng.randint(0, 256, (n, 3))], 1).astype(np.float32)
+    return pts, rng.randint(0, 9, n).astype(np.int32)
+
+
+def test_cli_semantic3d_trains_from_block_pkls(tmp_path):
+    """``--config semantic3d --data-dir`` on Semantic3D block pkls (13
+    features: rgb, intensity, covariances) trains ``tiny_s3dis`` one epoch
+    on the CPU and writes the JAX CLI's record with 8 classes."""
+    pts, labels = _scan(0)
+    blocks = semantic3d.sample_training_blocks(
+        pts, labels, ds_stride=0.3, min_pn=256, covar_nn_size=1.0,
+        rng=np.random.RandomState(0))
+    assert len(blocks) >= 4
+    semantic3d.save_blocks(str(tmp_path / "train" / "scan0.pkl"),
+                           blocks[:4])
+    argv = ["--config", "semantic3d", "--model", "tiny_s3dis",
+            "--num-points", "512", "--batch-size", "2", "--epochs", "1",
+            "--data-dir", str(tmp_path / "train"), "--device", "cpu",
+            "--metrics-file", str(tmp_path / "m.jsonl")]
+    state = cli.main(argv)
+    assert state.step == 2   # 4 blocks, 2 a step
+    rec, = [json.loads(line) for line in open(tmp_path / "m.jsonl")]
+    assert set(rec) == JAX_RECORD_KEYS
+    assert rec["epoch"] == 0 and np.isfinite(rec["train_loss"])
+    assert 0.0 <= rec["miou"] <= 1.0 and len(rec["iou"]) == 8
+    batch = next(iter(cli.make_batches(cli.build_cfg(cli.parse_args(argv)),
+                                       cli.parse_args(argv), "train",
+                                       2)(0)))
+    assert batch["feats"].shape == (2, 512, 13)
+
+
+def test_scene_eval_refuses_semantic3d():
+    """The scene eval has no Semantic3D ratio or scene reader yet
+    (ROADMAP.md M8b), so it refuses the config."""
+    with pytest.raises(SystemExit):
+        interpolate.parse_args(["--config", "semantic3d"])
+    assert interpolate.parse_args(["--config", "scannet"]).config == \
+        "scannet"
+
+
+def test_cli_semantic3d_synthetic_batches_match_jax():
+    """``--config semantic3d --synthetic`` gives the JAX CLI's batches: 13
+    feature columns, labels of the 8 classes."""
+    argv = ["--config", "semantic3d", "--synthetic", "--num-points", "256",
+            "--steps-per-epoch", "2"]
+    args = cli.parse_args(argv)
+    jargs = jcli.parse_args(argv)
+    got = list(cli.make_batches(cli.build_cfg(args), args, "train", 2)(0))
+    want = list(jcli.make_batches(jcli.build_cfg(jargs), jargs, "train",
+                                  2)())
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g["feats"].shape == (2, 256, 13)
+        assert g["labels"].max() < 8
+        for key in w:
+            np.testing.assert_array_equal(g[key], w[key], err_msg=key)

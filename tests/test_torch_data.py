@@ -1,6 +1,7 @@
 """The port's data pipeline against the JAX package's: under the same
 ``RandomState`` seeds its own copies of ``io_util``, ``augment``, ``s3dis``,
-``synth_rooms``, ``scannet``, ``batching`` and ``Provider`` give arrays
+``synth_rooms``, ``scannet``, ``semantic3d``, ``batching`` and
+``Provider`` give arrays
 equal to the JAX package's, and its native bindings give the JAX native
 library's results."""
 import functools
@@ -15,6 +16,7 @@ from pointcloudsegmentation_tpu.data import native as jnative
 from pointcloudsegmentation_tpu.data import provider as jprovider
 from pointcloudsegmentation_tpu.data import s3dis as js3dis
 from pointcloudsegmentation_tpu.data import scannet as jscannet
+from pointcloudsegmentation_tpu.data import semantic3d as jsemantic3d
 from pointcloudsegmentation_tpu.data import synth_rooms as jsynth
 from pointcloudsegmentation_tpu_torch.data import augment as taugment
 from pointcloudsegmentation_tpu_torch.data import batching as tbatching
@@ -23,6 +25,7 @@ from pointcloudsegmentation_tpu_torch.data import native as tnative
 from pointcloudsegmentation_tpu_torch.data import provider as tprovider
 from pointcloudsegmentation_tpu_torch.data import s3dis as ts3dis
 from pointcloudsegmentation_tpu_torch.data import scannet as tscannet
+from pointcloudsegmentation_tpu_torch.data import semantic3d as tsemantic3d
 from pointcloudsegmentation_tpu_torch.data import synth_rooms as tsynth
 
 
@@ -235,6 +238,74 @@ def test_scannet_prepare_and_blocks_from_scene_pkl(tmp_path, model):
     counts = np.bincount(labels, minlength=20).astype(np.float64)
     assert_same(tscannet.class_weights_from_counts(counts),
                 jscannet.class_weights_from_counts(counts))
+
+
+# -- semantic3d ---------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _scan(seed=0):
+    """A small Semantic3D-like scan: x y z intensity r g b over 25 x 20 m,
+    labels 0..8 (0 = unlabeled)."""
+    rng = np.random.RandomState(seed)
+    n = 12000
+    pts = np.concatenate([
+        rng.uniform(0, 25, (n, 1)), rng.uniform(0, 20, (n, 1)),
+        rng.uniform(0, 4, (n, 1)), rng.uniform(-2000, 2000, (n, 1)),
+        rng.randint(0, 256, (n, 3))], 1).astype(np.float32)
+    return pts, rng.randint(0, 9, n).astype(np.int32)
+
+
+def test_semantic3d_read_points_txt(tmp_path):
+    pts, labels = _scan()
+    np.savetxt(tmp_path / "s.txt", pts[:200], fmt="%.3f")
+    np.savetxt(tmp_path / "s.labels", labels[:200], fmt="%d")
+    for lab in (str(tmp_path / "s.labels"), None,
+                str(tmp_path / "missing.labels")):
+        assert_same(tsemantic3d.read_points_txt(str(tmp_path / "s.txt"), lab),
+                    jsemantic3d.read_points_txt(str(tmp_path / "s.txt"), lab))
+
+
+@pytest.mark.parametrize("with_labels", [True, False])
+def test_semantic3d_to_big_blocks(with_labels):
+    pts, labels = _scan()
+    labels = labels if with_labels else None
+    got = tsemantic3d.to_big_blocks(pts, labels, block_size=10.0,
+                                    ds_stride=0.3)
+    want = jsemantic3d.to_big_blocks(pts, labels, block_size=10.0,
+                                     ds_stride=0.3)
+    assert len(want) == 6
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize("rotate", [True, False])
+def test_semantic3d_sample_training_blocks(rotate):
+    pts, labels = _scan()
+    got, want = _both(jsemantic3d.sample_training_blocks,
+                      tsemantic3d.sample_training_blocks, pts, labels,
+                      seed=3, ds_stride=0.4, min_pn=64, rotate=rotate,
+                      covar_nn_size=1.0)
+    assert len(want) > 4 and want[0]["feats"].shape[1] == 13
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize("model", ["train", "test"])
+def test_semantic3d_blocks_from_pkl(tmp_path, model):
+    """The port's read of a saved block pkl (loaded, then
+    ``blocks_from_list``) equals the JAX ``blocks_from_pkl`` under the
+    same seeded rng."""
+    pts, labels = _scan(1)
+    blocks = tsemantic3d.sample_training_blocks(
+        pts, labels, ds_stride=0.4, min_pn=64, covar_nn_size=1.0,
+        rng=np.random.RandomState(4))
+    path = str(tmp_path / "scan.pkl")
+    tsemantic3d.save_blocks(path, blocks)
+    assert_same(tio.read_pkl(path), blocks)
+    got = tsemantic3d.blocks_from_list(model, tio.read_pkl(path),
+                                       rng=np.random.RandomState(5))
+    want = jsemantic3d.blocks_from_pkl(model, path,
+                                       rng=np.random.RandomState(5))
+    assert len(want) == len(blocks)
+    assert_same(got, want)
 
 
 # -- batching and the Provider -----------------------------------------------

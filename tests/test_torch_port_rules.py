@@ -55,7 +55,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert jax_modules == "[]", proc.stdout
     for name in ("train.cli", "interpolate", "parity_ab", "data.augment",
                  "data.io_util", "data.s3dis", "data.scannet",
-                 "data.synth_rooms", "data.provider", "utils.logging"):
+                 "data.semantic3d", "data.synth_rooms", "data.provider",
+                 "utils.logging"):
         assert f"'pointcloudsegmentation_tpu_torch.{name}'" in walked, name
 
 
