@@ -82,6 +82,18 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    phase 6's rules at the new extreme row widths (the pre-stage's 13
    columns in float32 and bf16, and the widest gather of the five), timed
    as in phases 3 and 6.
+11. the ECD and PGNet families and the PointNet++ baseline: the nine keys
+   of ``ECD_KEYS`` at full width, no depth cut, bf16 compute, seeded
+   weights, on toy blocks of 8192 points (``ecd_scannet`` under
+   ``scannet_config``, without input features; the rest under
+   ``s3dis_config``).  Their searches keep per-point overflow slots.
+   (a) One ``Trainer`` step of 4 blocks each with a finite loss and both
+   kernels' launches as ``ecd_gathers`` counts them per block, then 3
+   more steps timed (train points/s); (b) each key's float32 logits on
+   one block agree with the CPU's argmax on at least 0.999 of the valid
+   points; (c) K2 bit for bit and K3 under phase 6's rules at the
+   narrowest and the widest rows the nine keys gather, timed as in
+   phases 3 and 6.
 
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
@@ -109,6 +121,12 @@ S3DIS_KEYS = ("pointnet_baseline20", "pointnet_concat10_deconv",
               "pointnet_embed_only")
 METRICS_KEYS = {"epoch", "train_loss", "lr", "miou", "oiou", "oacc", "iou",
                 "acc", "points_per_sec"}   # the JAX CLI's epoch record
+# phase 11: the ECD and PGNet families and the PointNet++ baseline
+# (ecd_scannet on scannet_config, the rest on s3dis_config)
+ECD_KEYS = ("ecd_scannet", "ecd_s3dis", "pgnet_v3", "pgnet_v4", "pgnet_v5",
+            "pgnet_v6", "pgnet_v7", "pgnet_v8", "pointnet2_s3dis")
+ECD_ARGMAX_MIN = 0.999      # share of valid points with equal logit argmax
+ECD_TIMED_STEPS = 3         # training steps timed after the counted first
 DSLAB_F32_RTOL = 1e-6       # slab-gradient kernel vs plain, float32
 GRAD_COSINE_MIN = 0.999     # flat gradient, float32 card vs CPU
 K1_F32_RTOL = 1e-5          # fused conv vs plain, of the sum of magnitudes
@@ -1383,6 +1401,214 @@ def phase_family(card):
     return total, k2_rows, k3_rows
 
 
+def ecd_gathers(model, cfg):
+    """(what, level, K, F, dtype, grad) of every window-gather launch one
+    forward of an ECD, PGNet or PointNet++ model makes on its windowed
+    levels, in the order they run: each search's xyzm read (what
+    "search", K its candidate pool, 4 float32 columns) and each conv's
+    feature gather (what the conv's name, K the band's windowed slots).  F
+    is the width gathered, dtype the dtype it is gathered in: the compute
+    dtype, but float32 where the model concatenates the raw float32 input
+    features before the gather (pgnet_v7's stage-0 ECD convs), as jnp
+    promotes.  grad says whether the gathered tensor takes a gradient, so
+    that a training step's backward runs K3 on it: not the xyzm reads, nor
+    a first pointnet conv's gather of the raw input.  One gather per ECD
+    conv: the port gathers once where the JAX layer gathers twice."""
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.models import ecd
+    from pointcloudsegmentation_tpu_torch.models.pointnet import \
+        PointNet2Baseline
+
+    enc = model.encoder
+    sizes = (cfg.data.num_points,) + tuple(cfg.data.caps)
+    cdt = enc.dtype or torch.float32
+    f32 = torch.float32
+    out = []
+
+    def read(s, k):
+        out.append(("search", s, min(k, sizes[s]), 4, f32, False))
+
+    if isinstance(enc, (ecd.ECDSegModel, ecd.PGNetV6)):
+        for s, sp in enumerate(enc.specs):
+            read(s, 4 * sp.k)
+            if isinstance(enc, ecd.ECDSegModel):
+                out.extend((f"stage{s}.gc_{i}", s, sp.k, f, cdt, True)
+                           for i, f in enumerate(sp.gc_dims))
+            else:
+                out.extend((f"stage{s}.feats_{i}", s, sp.k, fp[0], cdt, True)
+                           for i, fp in enumerate(sp.feats_params))
+    elif isinstance(enc, (ecd.PGNetHybrid, ecd.PGNetV7)):
+        hybrid = isinstance(enc, ecd.PGNetHybrid)
+        i = 0
+        for s, stage in enumerate(enc.specs):
+            seen = set()
+            for c in stage.pairs if hybrid else stage.convs:
+                if (c.radius, c.k) not in seen:
+                    seen.add((c.radius, c.k))
+                    read(s, 4 * c.k)
+                pn = f"pointnet{i}" if hybrid else \
+                    f"feats{i}" if c.kind == "pn" else None
+                if pn is not None:
+                    f = (getattr(enc, pn).fc_0.in_features - 3) // 2
+                    out.append((pn, s, c.k, f, cdt, i > 0))
+                if hybrid:
+                    out.append((f"anchor_conv{i}", s, c.k, c.pn_out, cdt,
+                                True))
+                elif pn is None:
+                    f = getattr(enc, f"ecd{i}").fc_ew.out_features
+                    out.append((f"ecd{i}", s, c.k, f,
+                                f32 if s == 0 else cdt, True))
+                i += 1
+    elif isinstance(enc, PointNet2Baseline):
+        ci = 0
+        for s, units in enumerate(enc.STAGES):
+            read(s, enc.cand_k)
+            for u in units:
+                f = (getattr(enc, f"pn{ci}").fc_0.in_features - 3) // 2
+                out.append((f"pn{ci}", s, u[1], f, cdt, ci > 0))
+                out.append((f"anchor{ci}" if len(u) == 7 else f"pn{ci}b", s,
+                            u[1], u[3], cdt, True))
+                ci += 1
+    else:
+        raise TypeError(f"no gather count for {type(enc).__name__}")
+    return [g for g in out if sizes[g[1]] % 256 == 0
+            and sizes[g[1]] >= 4 * 256]
+
+
+def ecd_per_block(cfg):
+    """Kernel launches per block of a forward and of a training step of an
+    ECD-family model, from ``ecd_gathers``."""
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    gathers = ecd_gathers(build_model(cfg, None, "cpu"), cfg)
+    trained = sum(g[-1] for g in gathers)
+    return ({"window_gather": len(gathers)},
+            {"window_gather": len(gathers), "window_dslab": trained,
+             "window_dslab_map": trained})
+
+
+def phase_ecd(card):
+    """11: the ECD and PGNet families and the PointNet++ baseline at full
+    width, no depth cut, bf16 compute with f32 params and seeded weights:
+    (a) per key, one counted Trainer step of TRAIN_BLOCKS toy blocks with
+    a finite loss, then ECD_TIMED_STEPS more, timed; (b) a float32
+    one-block forward on the card and on the CPU with equal argmax on at
+    least ECD_ARGMAX_MIN of the valid points; (c) K2 and K3 against their
+    plain versions at the narrowest and the widest gather rows of the nine
+    keys.  Returns (launches, K2 rows, K3 rows, per-key records)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.config import (s3dis_config,
+                                                         scannet_config)
+    from pointcloudsegmentation_tpu_torch.data import toy
+    from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    total = {"window_gather": 0, "window_dslab": 0, "window_dslab_map": 0}
+    records, rows = [], []
+    for key in ECD_KEYS:
+        scannet = key == "ecd_scannet"
+        cfg = (scannet_config if scannet else s3dis_config)(model=key)
+        d = cfg.data
+        # ScanNet's labels run 0..20 with 0 ignored
+        batch = next(toy.toy_batches(
+            1, batch_size=TRAIN_BLOCKS, num_points=N_POINTS,
+            num_classes=d.num_classes + (1 if scannet else 0),
+            feat_dim=d.feat_dim))
+        fwd, step = ecd_per_block(cfg)
+        sizes = (d.num_points,) + tuple(d.caps)
+        rows.extend((key, sizes[g[1]]) + g for g in ecd_gathers(
+            build_model(cfg, None, "cpu"), cfg) if g[0] != "search")
+        # (a) training steps at full width
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, device="cuda")
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        log(f"[ecd] {key}: {trainer.num_params} params, launches per block "
+            f"{fwd} forward, {step} training step")
+        (state, m), counts, first = run_path(
+            f"{key} train step ({TRAIN_BLOCKS} x {N_POINTS} points)",
+            lambda: trainer.train_step(state, batch),
+            times(step, TRAIN_BLOCKS))
+        total = plus(total, counts)
+        loss = float(m["loss"])
+        check(math.isfinite(loss) and int(m["skipped"]) == 0,
+              f"{key} train step loss {loss}")
+
+        def timed():
+            st = state
+            for _ in range(ECD_TIMED_STEPS):
+                st, mm = trainer.train_step(st, batch)
+            torch.cuda.synchronize()
+            return st, mm
+
+        (state, m), counts, secs = run_path(
+            f"{key} {ECD_TIMED_STEPS} timed train steps", timed,
+            times(step, TRAIN_BLOCKS * ECD_TIMED_STEPS))
+        total = plus(total, counts)
+        check(math.isfinite(float(m["loss"])), f"{key} timed step loss")
+        valid = int(batch["mask"].sum())
+        step_s = secs / ECD_TIMED_STEPS
+        pps = valid * ECD_TIMED_STEPS / secs
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[ecd] {key}: first step loss {loss:.5f} in {first:.2f} s "
+            f"(set-up included); {step_s:.4f} s a step over "
+            f"{ECD_TIMED_STEPS} steps, {pps:.1f} train points/s, peak "
+            f"{peak:.3f} GiB [{card}]")
+        params = trainer.num_params
+        del trainer, state, m
+        torch.cuda.empty_cache()
+        # (b) float32 forward, card vs CPU, on the batch's first block
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            mdl = build_model(f32, torch.Generator().manual_seed(0), dev)
+            with torch.inference_mode():
+                logits[dev] = mdl(*(torch.from_numpy(batch[k][0]).to(dev)
+                                    for k in ("xyz", "feats", "mask"))
+                                  ).cpu()
+            del mdl
+        valid_rows = torch.from_numpy(batch["mask"][0])
+        same = logits["cuda"].argmax(1) == logits["cpu"].argmax(1)
+        agree = float(same[valid_rows].double().mean())
+        check(bool(torch.isfinite(logits["cuda"]).all()),
+              f"{key} float32 logits not finite")
+        log(f"[ecd] {key} float32 logits card vs CPU: argmax agreement "
+            f"{agree:.6f} over {int(valid_rows.sum())} valid points (need "
+            f">= {ECD_ARGMAX_MIN}), max |d| "
+            f"{(logits['cuda'] - logits['cpu']).abs().max():.3e} [{card}]")
+        check(agree >= ECD_ARGMAX_MIN, f"{key} argmax agreement {agree}")
+        records.append(dict(model=key, params=params, launches_per_block=step,
+                            loss=loss, first_step_s=first, step_s=step_s,
+                            train_points_per_sec=pps, peak_gib=peak,
+                            argmax_agreement=agree))
+
+    # (c) K2 and K3 at the narrowest and widest feature-gather rows (in
+    # bytes) of the nine keys, the first of each in key order
+    tile = window = 256
+    s = tile + 2 * window
+    row_bytes = lambda r: r[5] * r[6].itemsize  # noqa: E731
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    k2_rows, k3_rows = [], []
+    for what, pick in (("narrowest", min), ("widest", max)):
+        key, n, conv, _, k, f, dtype, _ = pick(rows, key=row_bytes)
+        name = f"{what} ({key} {conv})"
+        lidx = torch.randint(0, s, (n, k), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        lidx[:, 0] = 0
+        lidx[:, -1] = s - 1
+        lidx[::3, 1] = 7
+        feats = torch.randn((n, f), generator=gen, device="cuda").to(dtype)
+        k2_rows.append(k2_case(name, feats, lidx, window, tile, card))
+        g = torch.randn((n, k, f), generator=gen, device="cuda").to(dtype)
+        k3_rows.append(k3_case(name, g, lidx, window, tile, card))
+    log(f"[ecd] per-key records: {json.dumps(records)}")
+    return total, k2_rows, k3_rows, records
+
+
 def main() -> int:
     try:
         import torch
@@ -1425,6 +1651,12 @@ def main() -> int:
     rows += k2_family
     drows += k3_family
     entry_launches = plus(entry_launches, family_launches)
+    t11 = time.perf_counter()
+    ecd_launches, k2_ecd, k3_ecd, _ = phase_ecd(card)
+    log(f"[ecd] phase 11 in {time.perf_counter() - t11:.1f} s")
+    rows += k2_ecd
+    drows += k3_ecd
+    entry_launches = plus(entry_launches, ecd_launches)
 
     main_row = next(r for r in rows if r["name"].endswith("conv"))
     dmain, fmain = drows[0], frows[0]
@@ -1435,7 +1667,8 @@ def main() -> int:
         f"{dmain['dtype']} (slab gradient: map and sum kernels; the map "
         f"alone in its own row) and {fmain['name']} "
         f"{fmain['dtype']} (fused conv); launches are the serve sweep's plus "
-        f"one training step's, the entry points' and the PointNet family's, "
+        f"one training step's, the entry points', the PointNet family's and "
+        f"the ECD family's, "
         f"and the fused-conv bench's; eval {pps:.1f} "
         f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "
         f"GiB")

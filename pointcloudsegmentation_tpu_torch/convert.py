@@ -4,7 +4,9 @@ trainer state.
 Submodules keep the flax names, so a flax path maps to a torch key one to
 one: ``params/encoder/feats0/fc_0_nbr/kernel`` becomes
 ``encoder.feats0.fc_0_nbr.weight``.  Flax ``Dense`` kernels are [in, out];
-torch ``Linear`` weights are [out, in], so kernels are transposed.
+torch ``Linear`` weights are [out, in], so kernels are transposed.  The
+other leaves, biases, ``MaskedBatchNorm``'s ``scale`` and the ECD convs'
+``edge_weights_trans``, keep their names and flax shapes.
 
 The trainer keeps every parameter in one flat float32 vector laid out as
 ``jax.flatten_util.ravel_pytree`` lays out the flax tree (``ravel_layout``):
@@ -18,7 +20,9 @@ import numpy as np
 import torch
 from torch import nn
 
-_LEAF = {"kernel": "weight", "bias": "bias"}
+# flax leaf -> torch parameter name; only a Dense kernel is transposed
+_LEAF = {"kernel": "weight", "bias": "bias", "scale": "scale",
+         "edge_weights_trans": "edge_weights_trans"}
 _FLAX_LEAF = {v: k for k, v in _LEAF.items()}
 
 
@@ -38,7 +42,8 @@ def _params_tree(params: Mapping) -> Mapping:
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """Nested mapping of numpy arrays (with or without the top-level
     ``params`` collection) -> {torch key: float32 tensor}.  Raises on a leaf
-    that is not a Dense kernel or bias."""
+    that is not a Dense kernel or bias, a batch-norm scale or an
+    ``edge_weights_trans``."""
     out = {}
     for path, leaf in _flatten(_params_tree(params)):
         if path[-1] not in _LEAF:
@@ -88,7 +93,7 @@ def ravel_layout(model: nn.Module) -> List[Leaf]:
     for key, p in model.named_parameters():
         *mods, name = key.split(".")
         if name not in _FLAX_LEAF or (name == "weight" and p.dim() != 2):
-            raise KeyError(f"parameter {key} has no flax Dense counterpart")
+            raise KeyError(f"parameter {key} has no flax counterpart")
         shape = tuple(p.shape[::-1]) if name == "weight" else tuple(p.shape)
         entries.append((tuple(mods) + (_FLAX_LEAF[name],), key, shape))
     layout, offset = [], 0

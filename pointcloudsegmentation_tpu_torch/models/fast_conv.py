@@ -24,8 +24,6 @@ from torch import nn
 from ..ops import neighbors as nb
 from .layers import Dense
 
-_NEG = -1e30
-
 
 def split_xyz(xyz: torch.Tensor, dtype: torch.dtype
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -87,8 +85,4 @@ class PointNetConvFast(nn.Module):
                 hiddens.append(torch.relu(acc))
             else:
                 out = acc
-        mask = nbr.mask
-        best = torch.where(mask[..., None], out,
-                           torch.full_like(out, _NEG)).amax(dim=1)
-        any_valid = mask.any(dim=1)
-        return torch.where(any_valid[:, None], best, torch.zeros_like(best))
+        return nb.masked_max(out, nbr)

@@ -55,6 +55,27 @@ def init_glorot_(module: nn.Module, generator: torch.Generator) -> None:
             m.init_glorot_(generator)
 
 
+def add_growth(module: nn.Module, prefix: str, in_dim: int,
+               dims: Sequence[int], dtype: Optional[torch.dtype]) -> int:
+    """Register the Dense layers ``{prefix}{i}`` of a concat-growth stack on
+    ``in_dim`` columns; returns the grown width."""
+    w = in_dim
+    for i, d in enumerate(dims):
+        module.add_module(f"{prefix}{i}", Dense(w, d, dtype=dtype))
+        w += d
+    return w
+
+
+def growth(module: nn.Module, prefix: str, n: int, x: torch.Tensor,
+           new_first: bool) -> torch.Tensor:
+    """Run a stack registered by ``add_growth``: each of its n layers'
+    relu output joins x before it (``new_first``) or after it."""
+    for i in range(n):
+        c = torch.relu(getattr(module, f"{prefix}{i}")(x))
+        x = torch.cat([c, x] if new_first else [x, c], dim=-1)
+    return x
+
+
 class GrowthMLP(nn.Module):
     """Concat-growth MLP: each hidden layer's relu output is concatenated
     onto the running features, then a linear projection.  The new columns
@@ -120,12 +141,57 @@ class PointNetConv(nn.Module):
         for i in range(self.n_hidden):
             c = torch.relu(getattr(self, f"fc_{i}")(x))
             x = torch.cat([c, x], dim=-1) if self.concat_growth else c
-        out = self.fc_out(x)
-        mask = nbr.mask
-        best = torch.where(mask[..., None], out,
-                           torch.full_like(out, -1e30)).amax(dim=1)
-        return torch.where(mask.any(dim=1)[:, None], best,
-                           torch.zeros_like(best))
+        return nb.masked_max(self.fc_out(x), nbr)
+
+
+class ECDConv(nn.Module):
+    """Edge-conditioned diffusion conv (``diff_feats_ecd``/``ecd_feats``;
+    JAX ``models/layers.py:179-222``): a growth MLP (``ifc_{i}``, new
+    columns first) on ``[f_j - f_i ‖ sxyz]`` -> tanh edge weights of the
+    features' width (``fc_ew``) -> weighted neighbor features -> a growth
+    MLP (``ofc_{i}``) -> the eps-regularised mean over valid slots -> ReLU
+    ``fc_out``.
+
+    ``use_xyz_only=True`` is ``ecd_xyz``: the edge feature is the grown
+    sxyz itself, the weights take its width, and nothing is gathered.  The
+    JAX layer gathers the features twice (``neighbor_diff`` and
+    ``gather_neighbors``); here they are gathered once and the center
+    subtracted, the same function with one window gather (and one
+    slab-gradient backward) per conv.  Dtypes follow the JAX layer: each
+    Dense returns the compute dtype, and mixing it with float32 sxyz
+    promotes as jnp does."""
+
+    def __init__(self, in_dim: int, phi_dims: Sequence[int],
+                 g_dims: Sequence[int], out_dim: int,
+                 use_xyz_only: bool = False, eps: float = 1e-3,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.use_xyz_only = use_xyz_only
+        self.eps = eps
+        self.n_phi, self.n_g = len(phi_dims), len(g_dims)
+        w = add_growth(self, "ifc_", 3 if use_xyz_only else in_dim + 3,
+                       phi_dims, dtype)
+        ifn = w if use_xyz_only else in_dim
+        self.fc_ew = Dense(w, ifn, dtype=dtype)
+        w = add_growth(self, "ofc_", ifn, g_dims, dtype)
+        self.fc_out = Dense(w, out_dim, dtype=dtype)
+
+    def forward(self, sxyz: torch.Tensor, feats: Optional[torch.Tensor],
+                nbr) -> torch.Tensor:
+        """sxyz [N, K, 3], feats [N, F] (None for ``use_xyz_only``) ->
+        [N, out]."""
+        if self.use_xyz_only:
+            phi = sxyz
+        else:
+            edge = nb.gather_neighbors(feats, nbr)
+            phi = torch.cat([edge - feats[:, None, :], sxyz], dim=-1)
+        phi = growth(self, "ifc_", self.n_phi, phi, True)
+        if self.use_xyz_only:
+            edge = phi
+        x = growth(self, "ofc_", self.n_g, torch.tanh(self.fc_ew(phi)) * edge,
+                   True)
+        pooled = nb.masked_mean_eps(x, nbr, self.eps)
+        return torch.relu(self.fc_out(pooled))
 
 
 class FCEmbed(nn.Module):

@@ -1,7 +1,8 @@
-"""PointNet-conv segmentation encoder (mirror of
+"""PointNet-conv segmentation encoders (mirror of
 ``pointcloudsegmentation_tpu.models.pointnet``'s ``PointNetSegEncoder`` and
 its archs: the flagship, ScanNet, the two Semantic3D nets, the noconcat
-baseline, the deconv net and the embed-only ablation).
+baseline, the deconv net and the embed-only ablation; and of its
+PointNet++ baseline, ``PointNet2Baseline``, at the end of the file).
 
 Per stage (= pyramid level): one shared multi-band search, then each conv
 (optional fc_embed bottleneck -> PointNetConvFast, or the plain-MLP
@@ -23,6 +24,7 @@ from torch import nn
 from ..ops import hierarchy as hier
 from ..ops import search
 from ..ops.types import Pyramid
+from .ecd import MLPAnchorConv
 from .fast_conv import PointNetConvFast
 from .layers import (Dense, FCEmbed, GrowthMLP, PointNetConv,
                      PointNetPoolMLP)
@@ -504,4 +506,96 @@ class PointNetSegEncoder(nn.Module):
                 lf = torch.cat([upf, up, stage_feats[s]], dim=-1)
             else:
                 lf = torch.cat([up, stage_feats[s]], dim=-1)
+        return lf, stage_feats[0]
+
+
+class PointNet2Baseline(nn.Module):
+    """pointnet2_v2 (JAX ``models/pointnet.py:293-365``): the
+    PointNet++-style baseline.  Per unit a narrow pointnet conv (``pn{i}``)
+    feeds a second, wider one (``pn{i}b``), or at stage 2 an
+    ``MLPAnchorConv`` (``anchor{i}``), and both outputs join the growth
+    concat; one multi-band search per stage (per-point overflow slots); a
+    pointnet pool (``pool{s}``) between stages; the growth MLP ``global``
+    on [top xyz ‖ top feats]; unpool-concat decoder.  Returns (decoder
+    output, stage-0 feats) for the unfactored head."""
+
+    head_dim = None
+    cand_k = CAND_K
+    # (radius, k, fc_a, out_a, fc_b, out_b) per unit; stage 2 units use
+    # (radius, k, fc_a, out_a, anchor_weights, anchor_out, anchor_num)
+    STAGE0 = ((0.15, 32, (8,), 8, (8, 16), 16),
+              (0.15, 32, (8,), 8, (8, 16), 16),
+              (0.1, 16, (16,), 16, (16, 32), 32),
+              (0.1, 16, (16,), 16, (16, 32), 32))
+    STAGE1 = ((0.6, 32, (16,), 16, (16, 32), 32),
+              (0.6, 32, (16,), 16, (16, 32), 32),
+              (0.3, 16, (16,), 16, (24, 48), 48),
+              (0.3, 16, (20,), 20, (32, 64), 64))
+    STAGE2 = ((0.9, 32, (24,), 24, (32,), 64, 12),
+              (0.9, 32, (24,), 24, (48,), 96, 16))
+    STAGES = (STAGE0, STAGE1, STAGE2)
+    POOLS = (((16, 16), 64), ((32, 32), 128))
+
+    def __init__(self, feat_dim: int, search_chunk: int = 1024,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.search_chunk = search_chunk
+        self.dtype = dtype
+        w = feat_dim
+        ci = 0
+        stage_widths = []
+        for s, units in enumerate(self.STAGES):
+            for u in units:
+                self.add_module(f"pn{ci}", PointNetConv(w, u[2], u[3],
+                                                        dtype=dtype))
+                if len(u) == 7:
+                    self.add_module(f"anchor{ci}", MLPAnchorConv(
+                        u[3], u[4], u[5], u[6], dtype=dtype))
+                else:
+                    self.add_module(f"pn{ci}b", PointNetConv(
+                        u[3], u[4], u[5], dtype=dtype))
+                w += u[5] + u[3]
+                ci += 1
+            stage_widths.append(w)
+            if s < 2:
+                dims, out = self.POOLS[s]
+                self.add_module(f"pool{s}", PointNetPoolMLP(w, dims, out,
+                                                            dtype=dtype))
+                w = out
+        self.add_module("global", GrowthMLP(3 + w, (64, 64, 128), 256,
+                                            dtype=dtype))
+        self.out_width = 256 + sum(stage_widths)
+        self.stage0_width = stage_widths[0]
+
+    def forward(self, pyramid: Pyramid, feats: torch.Tensor):
+        stage_feats = []
+        ci = 0
+        for s, units in enumerate(self.STAGES):
+            lvl = pyramid.levels[s]
+            n = lvl.xyz.shape[0]
+            uniq = list(dict.fromkeys((u[0], u[1]) for u in units))
+            res = search.band_neighbors_auto(
+                lvl.xyz, lvl.mask, tuple((0.0, r, k) for r, k in uniq),
+                cand_k=min(self.cand_k, n),
+                chunk=min(self.search_chunk, n), return_sxyz=True,
+                sorted=pyramid.level_sorted(s))
+            nbrs = dict(zip(uniq, res))
+            for u in units:
+                nbr, sxyz_raw = nbrs[(u[0], u[1])]
+                sxyz = sxyz_raw / u[0]
+                pn = getattr(self, f"pn{ci}")(sxyz, feats, nbr)
+                second = getattr(self, f"anchor{ci}" if len(u) == 7
+                                 else f"pn{ci}b")(sxyz, pn, nbr)
+                feats = torch.cat([feats, second, pn], dim=-1)
+                ci += 1
+            stage_feats.append(feats)
+            if s < 2:
+                pooled = getattr(self, f"pool{s}")(pyramid.dxyz[s], feats)
+                feats = hier.pool_max(pooled, pyramid, s)
+        gin = torch.cat([pyramid.levels[2].xyz, feats], dim=-1)
+        lf = torch.cat([getattr(self, "global")(gin), stage_feats[2]],
+                       dim=-1)
+        for s in (1, 0):
+            lf = torch.cat([hier.unpool(lf, pyramid, s), stage_feats[s]],
+                           dim=-1)
         return lf, stage_feats[0]

@@ -1,0 +1,144 @@
+"""The ECD conv variants and the masked batch norm of the PGNet models
+(mirror of part of ``pointcloudsegmentation_tpu.models.variants``):
+``ECDFeatsV4`` (pgnet_v7's conv), and ``MaskedBatchNorm``, ``ECDXyzV2``
+and ``ECDFeatsV2`` (pgnet_v6's).
+
+Submodule and parameter names are the flax ones, so ``convert.py`` maps
+the trees one to one; the two non-Dense leaves, ``edge_weights_trans``
+and the batch norm's ``scale``, keep their flax shapes.  Dtypes follow the
+JAX layers: each Dense returns the compute dtype, and mixing it with a
+float32 tensor or parameter promotes as jnp does.  Where a JAX layer
+gathers one tensor twice (``neighbor_diff`` and ``gather_neighbors``), it
+is gathered once here and the center subtracted."""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..ops import neighbors as nb
+from .layers import Dense, add_growth, growth
+
+
+def l2_normalise(ew: torch.Tensor) -> torch.Tensor:
+    """``ew / (sqrt(sum(ew^2) + 1e-5) + 1e-5)`` over the last axis, in
+    ew's dtype (JAX ``models/variants.py:167-168``, ``models/ecd.py:
+    224-225``)."""
+    norm = torch.sqrt((ew * ew).sum(dim=-1, keepdim=True) + 1e-5)
+    return ew / (norm + 1e-5)
+
+
+class ECDFeatsV4(nn.Module):
+    """``ecd_feats_v4`` (JAX ``models/variants.py:147-175``): a growth MLP
+    (``ifc_{i}``, new first) on ``[f_j - f_i ‖ sxyz]`` -> linear per-feature
+    edge weights (``fc_ew``), l2-normalised and rescaled by the trainable
+    ``edge_weights_trans`` [1, F] -> weighted neighbor features -> the
+    eps-regularised mean -> linear ``fc_out``."""
+
+    def __init__(self, in_dim: int, ifc_dims: Sequence[int], out_dim: int,
+                 eps: float = 1e-3, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.eps = eps
+        self.n_ifc = len(ifc_dims)
+        w = add_growth(self, "ifc_", in_dim + 3, ifc_dims, dtype)
+        self.fc_ew = Dense(w, in_dim, dtype=dtype)
+        self.edge_weights_trans = nn.Parameter(torch.ones(1, in_dim))
+        self.fc_out = Dense(in_dim, out_dim, dtype=dtype)
+
+    def forward(self, sxyz: torch.Tensor, feats: torch.Tensor,
+                nbr) -> torch.Tensor:
+        edge = nb.gather_neighbors(feats, nbr)
+        x = torch.cat([edge - feats[:, None, :], sxyz], dim=-1)
+        x = growth(self, "ifc_", self.n_ifc, x, True)
+        ew = l2_normalise(self.fc_ew(x)) * self.edge_weights_trans
+        pooled = nb.masked_mean_eps(edge * ew, nbr, self.eps)
+        return self.fc_out(pooled)
+
+
+class MaskedBatchNorm(nn.Module):
+    """Batch norm over the valid points of one block (JAX
+    ``models/variants.py:177-198``): mean and variance of the current
+    block's valid rows in both modes, in x's dtype, no running state;
+    ``scale`` and ``bias`` are float32 [C]."""
+
+    def __init__(self, dim: int, eps: float = 1e-3):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        m = mask[:, None].to(x.dtype)
+        cnt = m.sum().clamp(min=1.0)
+        mean = (x * m).sum(dim=0, keepdim=True) / cnt
+        var = (((x - mean) ** 2) * m).sum(dim=0, keepdim=True) / cnt
+        return (x - mean) / torch.sqrt(var + self.eps) * self.scale \
+            + self.bias
+
+
+class ECDXyzV2(nn.Module):
+    """``ecd_xyz_v2`` (JAX ``models/variants.py:200-233``): growth MLPs
+    with the new columns last on sxyz give the edge features
+    (``feats_fc_{i}``, ``final_feats_fc``) and tanh diffusion weights
+    (``diffusion_fc_{i}``, ``final_diffusion_fc``); their product grows
+    through ``embed_fc_{i}``, is eps-mean pooled, then ReLU
+    ``out_embed_fc`` and ``out_bn``.  Gathers nothing."""
+
+    def __init__(self, feats_dims: Sequence[int], final_feats_dim: int,
+                 diffusion_dims: Sequence[int], trans_dims: Sequence[int],
+                 out_dim: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.n = (len(feats_dims), len(diffusion_dims), len(trans_dims))
+        w = add_growth(self, "feats_fc_", 3, feats_dims, dtype)
+        self.final_feats_fc = Dense(w, final_feats_dim, dtype=dtype)
+        w = add_growth(self, "diffusion_fc_", 3, diffusion_dims, dtype)
+        self.final_diffusion_fc = Dense(w, final_feats_dim, dtype=dtype)
+        w = add_growth(self, "embed_fc_", final_feats_dim, trans_dims,
+                       dtype)
+        self.out_embed_fc = Dense(w, out_dim, dtype=dtype)
+        self.out_bn = MaskedBatchNorm(out_dim)
+
+    def forward(self, sxyz: torch.Tensor, nbr,
+                mask: torch.Tensor) -> torch.Tensor:
+        nf, nd, nt = self.n
+        edge = self.final_feats_fc(growth(self, "feats_fc_", nf, sxyz,
+                                           False))
+        ew = torch.tanh(self.final_diffusion_fc(
+            growth(self, "diffusion_fc_", nd, sxyz, False)))
+        x = growth(self, "embed_fc_", nt, ew * edge, False)
+        out = torch.relu(self.out_embed_fc(nb.masked_mean_eps(x, nbr)))
+        return self.out_bn(out, mask)
+
+
+class ECDFeatsV2(nn.Module):
+    """``ecd_feats_v2`` (JAX ``models/variants.py:235-262``): a linear
+    embed (``in_embed_fc``), tanh diffusion weights from a growth MLP with
+    the new columns last on ``[e_j - e_i ‖ sxyz]``, the weighted gathered
+    embeddings grown through ``embed_fc_{i}``, eps-mean pooled, then ReLU
+    ``out_embed_fc`` and ``out_bn``."""
+
+    def __init__(self, in_dim: int, embed_dim: int,
+                 diffusion_dims: Sequence[int], trans_dims: Sequence[int],
+                 out_dim: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.n = (len(diffusion_dims), len(trans_dims))
+        self.in_embed_fc = Dense(in_dim, embed_dim, dtype=dtype)
+        w = add_growth(self, "diffusion_fc_", embed_dim + 3,
+                       diffusion_dims, dtype)
+        self.final_diffusion_fc = Dense(w, embed_dim, dtype=dtype)
+        w = add_growth(self, "embed_fc_", embed_dim, trans_dims, dtype)
+        self.out_embed_fc = Dense(w, out_dim, dtype=dtype)
+        self.out_bn = MaskedBatchNorm(out_dim)
+
+    def forward(self, sxyz: torch.Tensor, feats: torch.Tensor, nbr,
+                mask: torch.Tensor) -> torch.Tensor:
+        nd, nt = self.n
+        emb = self.in_embed_fc(feats)
+        edge = nb.gather_neighbors(emb, nbr)
+        w = torch.cat([edge - emb[:, None, :], sxyz], dim=-1)
+        ew = torch.tanh(self.final_diffusion_fc(
+            growth(self, "diffusion_fc_", nd, w, False)))
+        x = growth(self, "embed_fc_", nt, ew * edge, False)
+        out = torch.relu(self.out_embed_fc(nb.masked_mean_eps(x, nbr)))
+        return self.out_bn(out, mask)

@@ -1,19 +1,20 @@
-"""Neighborhood gathers (mirror of ``pointcloudsegmentation_tpu.ops.neighbors``
-for the parts the PointNet family's training and inference paths run).
+"""Neighborhood gathers and masked reductions (mirror of
+``pointcloudsegmentation_tpu.ops.neighbors`` for the parts the PointNet,
+ECD and PGNet families' training and inference paths run).
 
 The windowed slots go through ``WindowGather`` (``kernels/window_gather.py``):
 the window-gather kernel forward and the slab-gradient kernel plus a dense
 overlap-add backward on CUDA.  Where the JAX CPU path clips a slab index
 into the block, the kernel reads zero padding; the two agree wherever a
 result is used, because invalid slots self-pad and every valid slot names a
-row inside the block.  The pooled overflow slots are plain indexing, whose
-backward is PyTorch's sort-based index accumulation."""
+row inside the block.  The overflow slots, pooled or per point, are plain
+indexing, whose backward is PyTorch's sort-based index accumulation."""
 from __future__ import annotations
 
 import torch
 
 from ..kernels.window_gather import WindowGather
-from .types import WindowedNeighborhood
+from .types import Neighborhood, WindowedNeighborhood
 
 
 def windowed_gather(feats: torch.Tensor,
@@ -51,13 +52,25 @@ def _pool_gather(feats: torch.Tensor,
 def gather_neighbors(feats: torch.Tensor, nbr) -> torch.Tensor:
     """Point features [N, F] -> per-slot neighbor features [N, K, F].
     Invalid slots hold the center's own features; callers mask.  A
-    WindowedNeighborhood gives the [N, K + Ko, F] combined view."""
+    WindowedNeighborhood gives the [N, K + Ko, F] combined view; its
+    per-point overflow slots (``pool_idx`` None) are a plain row gather,
+    as in JAX ``ops/neighbors.py:189``."""
     if isinstance(nbr, WindowedNeighborhood):
         win = windowed_gather(feats, nbr)
         if nbr.ov_idx.shape[-1] == 0:
             return win
-        return torch.cat([win, _pool_gather(feats, nbr)], dim=1)
+        if nbr.pool_idx is None:
+            ov = feats[nbr.ov_idx.long()]
+        else:
+            ov = _pool_gather(feats, nbr)
+        return torch.cat([win, ov], dim=1)
     return feats[nbr.idx.long()]
+
+
+def neighbor_diff(vals: torch.Tensor, nbr) -> torch.Tensor:
+    """Per-slot ``x_j - x_i`` (JAX ``ops/neighbors.py:228-235``):
+    [N, F] -> [N, K, F]; exactly zero on invalid slots, which self-pad."""
+    return gather_neighbors(vals, nbr) - vals[:, None, :]
 
 
 def neighbor_concat(feats: torch.Tensor, nbr) -> torch.Tensor:
@@ -66,3 +79,48 @@ def neighbor_concat(feats: torch.Tensor, nbr) -> torch.Tensor:
     [N, F] -> [N, K(+Ko), 2F]."""
     neigh = gather_neighbors(feats, nbr)
     return torch.cat([feats[:, None, :].expand_as(neigh), neigh], dim=-1)
+
+
+def masked_max(edge_feats: torch.Tensor, nbr) -> torch.Tensor:
+    """Max over valid slots, 0 for a point without one (JAX
+    ``ops/neighbors.py:249-262``): [N, K, F] -> [N, F]."""
+    mask = nbr.mask
+    best = torch.where(mask[..., None], edge_feats,
+                       torch.full_like(edge_feats, -1e30)).amax(dim=1)
+    return torch.where(mask.any(dim=1)[:, None], best,
+                       torch.zeros_like(best))
+
+
+def masked_sum(edge_feats: torch.Tensor, nbr) -> torch.Tensor:
+    """Sum over valid slots (JAX ``:265-269``): [N, K, F] -> [N, F]."""
+    return (edge_feats * nbr.mask[..., None].to(edge_feats.dtype)).sum(dim=1)
+
+
+def masked_mean(edge_feats: torch.Tensor, nbr) -> torch.Tensor:
+    """Mean over valid slots, 0 for a point without one (JAX
+    ``:272-276``)."""
+    return masked_sum(edge_feats, nbr) / nbr.counts()[:, None].clamp(min=1.0)
+
+
+def masked_mean_eps(edge_feats: torch.Tensor, nbr,
+                    eps: float = 1e-3) -> torch.Tensor:
+    """The ECD layers' eps-regularised mean ``(1+eps)/(n+eps) * sum``
+    (JAX ``:279-285``)."""
+    inv = (1.0 + eps) / (nbr.counts()[:, None] + eps)
+    return inv * masked_sum(edge_feats, nbr)
+
+
+def eliminate_center(nbr: Neighborhood) -> Neighborhood:
+    """Drop self-edges by a mask update (JAX ``:288-296``)."""
+    n = nbr.idx.shape[0]
+    self_idx = torch.arange(n, dtype=nbr.idx.dtype,
+                            device=nbr.idx.device)[:, None]
+    keep = nbr.mask & (nbr.idx != self_idx)
+    return Neighborhood(idx=torch.where(keep, nbr.idx, self_idx), mask=keep)
+
+
+def concat_non_center(feats: torch.Tensor, nbr: Neighborhood):
+    """``[center ‖ neighbor]`` over non-self edges (JAX ``:300-304``):
+    returns ([N, K, 2F], the neighborhood without self-edges)."""
+    nc = eliminate_center(nbr)
+    return neighbor_concat(feats, nc), nc

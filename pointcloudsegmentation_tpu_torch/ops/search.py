@@ -1,7 +1,8 @@
 """Fixed-K multi-band neighbor search (mirror of
-``pointcloudsegmentation_tpu.ops.search`` in its production configuration:
-windowed slab selection with a tile-shared overflow pool, plus the global
-search for levels too small to window).
+``pointcloudsegmentation_tpu.ops.search`` in its production configurations:
+windowed slab selection with a tile-shared overflow pool or with per-point
+overflow slots, the global search for levels too small to window, and the
+dispatch between them, ``band_neighbors_auto``).
 
 Selection reproduces the JAX CPU result slot for slot:
 
@@ -194,22 +195,24 @@ def windowed_multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
                                   ov_pool_size: int = 256,
                                   return_sxyz: bool = False):
     """Multi-band search for MORTON-SORTED points, split into windowed slots
-    and tile-pooled overflow slots (``sel_mode="slab"``, ``ov_mode="slots"``).
+    and overflow slots (``sel_mode="slab"``, ``ov_mode="slots"``).
 
     Each tile of ``tile`` points selects its ``cand_k`` nearest candidates
     from its slab ``[t*tile - window, t*tile + tile + window)``; a global
     pass over the out-of-slab columns picks ``2*ov_slots`` overflow
-    candidates per point, deduped per tile into a pool of ``ov_pool_size``.
-    Every band then compacts both tiers.  Returns a tuple of
+    candidates per point.  With ``ov_pool_size > 0`` they are deduped per
+    tile into a pool of that size and the overflow slots hold pool
+    positions; with 0 the overflow slots hold per-point global indices,
+    their geometry read by plain row indexing (JAX ``ops/search.py:684-686,
+    745-752``).  Every band then compacts both tiers.  Returns a tuple of
     WindowedNeighborhood per band, or of (WindowedNeighborhood, sxyz
     [N, K+Ko, 3]) pairs."""
     n = xyz.shape[0]
     if n % tile or window % tile:
         raise ValueError(f"need N % tile == 0 and window % tile == 0 "
                          f"(N={n}, tile={tile}, window={window})")
-    if ov_pool_size <= 0:
-        raise ValueError("the windowed search needs a tile-shared overflow "
-                         "pool (ov_pool_size > 0)")
+    if ov_pool_size < 0:
+        raise ValueError(f"ov_pool_size must be >= 0, got {ov_pool_size}")
     dev = xyz.device
     chunk = min(chunk, n)
     sq = sqnorm3(xyz)
@@ -262,10 +265,17 @@ def windowed_multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
         ovv[rows], oci[rows] = _topk_smallest(d2g, ov_pool)
     opool_mask = ovv < _INF * 0.5
 
-    pool_gidx, ppos = _tile_shared_pool(oci, opool_mask, tile, ov_pool_size)
-    pg = xyzm[pool_gidx.reshape(-1).long()].reshape(nt, ov_pool_size, 4)
-    ocand = pool_take(pg, ppos, tile)                          # [N, op, 4]
-    opool_mask = opool_mask & (ppos < ov_pool_size)
+    if ov_pool_size > 0:
+        pool_gidx, ppos = _tile_shared_pool(oci, opool_mask, tile,
+                                            ov_pool_size)
+        pg = xyzm[pool_gidx.reshape(-1).long()].reshape(nt, ov_pool_size, 4)
+        ocand = pool_take(pg, ppos, tile)                      # [N, op, 4]
+        opool_mask = opool_mask & (ppos < ov_pool_size)
+        ov_src, ov_pad = ppos, torch.full_like(row, ov_pool_size)
+    else:
+        pool_gidx = None
+        ocand = xyzm[oci]                                      # [N, op, 4]
+        ov_src, ov_pad = oci.to(torch.int32), row
     sxyz_ov = ocand[..., :3] - xyz[:, None, :]
     ed2_ov = sqnorm3(sxyz_ov)
     valid_ov = (ocand[..., 3] > 0.5) & opool_mask
@@ -275,9 +285,8 @@ def windowed_multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
                            sxyz_win if return_sxyz else None, mask,
                            self_local, bands, ks)
     ocomp = _compact_bands(ed2_ov, valid_ov, torch.zeros_like(valid_ov),
-                           ppos, sxyz_ov if return_sxyz else None, mask,
-                           torch.full_like(row, ov_pool_size), bands,
-                           [min(ov_slots, k) for k in ks])
+                           ov_src, sxyz_ov if return_sxyz else None, mask,
+                           ov_pad, bands, [min(ov_slots, k) for k in ks])
     out = []
     for (widx, wm, wsx), (oidx, om, osx) in zip(wcomp, ocomp):
         wn = WindowedNeighborhood(lidx=widx, wmask=wm, ov_idx=oidx,
@@ -286,3 +295,26 @@ def windowed_multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
         out.append((wn, torch.cat([wsx, osx], dim=1)) if return_sxyz
                    else wn)
     return tuple(out)
+
+
+def band_neighbors_auto(xyz: torch.Tensor, mask: torch.Tensor, bands,
+                        cand_k: int = 64, chunk: int = 1024,
+                        return_sxyz: bool = False, sorted: bool = False):
+    """The JAX ``band_neighbors_auto`` (``ops/search.py:448-489``) with the
+    defaults every caller of the port uses: the windowed search (tile and
+    window 256, 8 overflow slots per band, per-point overflow slots:
+    ``ov_pool_size=0``) where the caller asserts Morton order
+    (``sorted``) and the level is tile-aligned and at least 4 tiles long,
+    else the global search.  The windowed search's candidate pool is
+    ``effective_win_cand_k(None, cand_k, bands, n)``; the global search
+    keeps ``min(cand_k, n)``.  The JAX version's environment overrides are
+    not carried over: slab selection is the only windowed mode."""
+    n = xyz.shape[0]
+    if sorted and n % 256 == 0 and n >= 4 * 256:
+        return windowed_multi_band_neighbors(
+            xyz, mask, bands, tile=256, window=256,
+            cand_k=effective_win_cand_k(None, cand_k, bands, n), ov_slots=8,
+            chunk=min(chunk, n), ov_pool_size=0, return_sxyz=return_sxyz)
+    return multi_band_neighbors(xyz, mask, bands, cand_k=min(cand_k, n),
+                                chunk=min(chunk, n),
+                                return_sxyz=return_sxyz)

@@ -19,20 +19,28 @@ class Neighborhood(NamedTuple):
     idx: torch.Tensor
     mask: torch.Tensor
 
+    def counts(self) -> torch.Tensor:
+        """Per-point number of valid neighbors, float32 [N] (JAX
+        ``ops/types.py:35-37``)."""
+        return self.mask.to(torch.float32).sum(dim=-1)
+
 
 @dataclass(frozen=True)
 class WindowedNeighborhood:
     """Neighborhood of Morton-sorted points split into windowed slots and
-    pooled overflow slots (see ``ops.search.windowed_multi_band_neighbors``).
+    overflow slots (see ``ops.search.windowed_multi_band_neighbors``).
 
     lidx:     [N, K] int32 — slab-local indices in [0, tile + 2*window): slot
               k of point i names row ``(i//tile)*tile + lidx[i,k] - window``.
     wmask:    [N, K] bool
-    ov_idx:   [N, Ko] int32 — positions into the tile-shared pool
-              ``pool_idx`` (invalid slots hold P, the null position).
+    ov_idx:   [N, Ko] int32 — out-of-slab neighbors.  With ``pool_idx`` set
+              they are positions into the tile-shared pool (invalid slots
+              hold P, the null position); with ``pool_idx`` None they are
+              per-point global point indices (invalid slots hold the
+              point's own index).
     ov_mask:  [N, Ko] bool
-    pool_idx: [nt, P] int32 — global point indices of each tile's pool
-              (invalid entries hold 0 and are never referenced).
+    pool_idx: optional [nt, P] int32 — global point indices of each tile's
+              pool (invalid entries hold 0 and are never referenced).
     """
 
     lidx: torch.Tensor
@@ -47,10 +55,16 @@ class WindowedNeighborhood:
     def mask(self) -> torch.Tensor:
         return torch.cat([self.wmask, self.ov_mask], dim=-1)
 
+    def counts(self) -> torch.Tensor:
+        """Per-point number of valid windowed and overflow slots, float32
+        [N] (JAX ``ops/types.py:93-94``)."""
+        return self.mask.to(torch.float32).sum(dim=-1)
+
     @property
     def global_idx(self) -> torch.Tensor:
-        """[N, K+Ko] global indices (slab-local and pool slots converted;
-        invalid slots hold the center's own index)."""
+        """[N, K+Ko] global indices (slab-local and pool slots converted,
+        per-point overflow slots as they are; invalid slots hold the
+        center's own index)."""
         n = self.lidx.shape[0]
         row = torch.arange(n, dtype=torch.int32, device=self.lidx.device)
         tile_start = (row // self.tile) * self.tile

@@ -1,11 +1,12 @@
-"""Device profile of the flagship training step on one CUDA card.
+"""Device profile of a training step on one CUDA card.
 
-    python -m pointcloudsegmentation_tpu_torch.profile_train
+    python -m pointcloudsegmentation_tpu_torch.profile_train [--model KEY]
 
-Run from the root of a checkout.  Builds the flagship ``pointnet_s3dis`` at
-full width (bf16 compute, weights from ``torch.Generator`` seed 0, S3DIS
-class weights) and feeds it steps of 4 blocks of 8192 points
-(``toy.toy_batches``, seed 0), as ``chip_smoke.py`` phase 7 does.  Then:
+Run from the root of a checkout.  Builds ``--model`` (default the flagship
+``pointnet_s3dis``; any key of ``s3dis_config``) at full width (bf16
+compute, weights from ``torch.Generator`` seed 0, S3DIS class weights) and
+feeds it steps of 4 blocks of 8192 points (``toy.toy_batches``, seed 0),
+as ``chip_smoke.py`` phases 7, 10 and 11 do.  Then:
 
 - times 3 unprofiled chains of 10 steps, one host sync per chain, and takes
   the median step;
@@ -21,6 +22,7 @@ the first line.
 """
 from __future__ import annotations
 
+import argparse
 import time
 from collections import defaultdict
 from typing import Dict, List
@@ -75,7 +77,11 @@ def summarize(averages, steps: int, step_s: float) -> Dict:
                        key=lambda r: -r[1]))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--model", default="pointnet_s3dis",
+                   help="registry key under s3dis_config")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
 
@@ -89,8 +95,8 @@ def main() -> int:
 
     card = card_name()
     print(f"[profile] {card}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}", flush=True)
-    cfg = s3dis_config()
+          f"{torch.version.cuda}; {args.model}", flush=True)
+    cfg = s3dis_config(model=args.model)
     trainer = Trainer(cfg, device="cuda")
     state = trainer.init_state(torch.Generator().manual_seed(0))
     batches = [to_device(b, "cuda") for b in toy.toy_batches(

@@ -1,21 +1,25 @@
 """Model registry: config key -> end-to-end module (Morton sort + pyramid +
 encoder + head), mirroring ``pointcloudsegmentation_tpu.train.model_zoo``
-for its ``PointNetSegEncoder`` keys (``_ARCHS``) and ``tiny_s3dis``."""
+for its ``PointNetSegEncoder`` keys (``_ARCHS``), ``tiny_s3dis``, the ECD
+and PGNet families and the PointNet++ baseline (``_ENCODERS``)."""
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..config import TrainConfig
+from ..models import ecd
 from ..models.layers import SegClassifier, init_glorot_
 from ..models.pointnet import (HEAD_DIM, S3DIS_ARCH,
                                S3DIS_BASELINE20_ARCH,
                                S3DIS_CONCAT10_DECONV_ARCH, S3DIS_EMBED_ARCH,
                                SCANNET_ARCH, SEMANTIC3D_ARCH,
                                SEMANTIC3D_DILATE_ARCH, Arch, ConvSpec,
-                               PointNetSegEncoder, StageSpec)
+                               PointNet2Baseline, PointNetSegEncoder,
+                               StageSpec)
 from ..ops import hierarchy as hier
 from ..ops import morton
 
@@ -27,9 +31,11 @@ class SegmentationModel(nn.Module):
     -> per-point logits in the caller's point order.  The head is sized
     from what the encoder returns: premixed on the factored head's
     head_dim columns, else with ``class_mlp1`` on the wide decoder
-    output."""
+    output.  Any encoder with ``out_width``, ``stage0_width`` and
+    ``head_dim`` (None: unfactored) that maps (pyramid, feats) to (head
+    input, stage-0 feats) will do."""
 
-    def __init__(self, encoder: PointNetSegEncoder, num_classes: int,
+    def __init__(self, encoder: nn.Module, num_classes: int,
                  voxel_sizes: Tuple[float, ...], caps: Tuple[int, ...],
                  block_size: float, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -79,6 +85,20 @@ _ARCHS = {"pointnet_s3dis": lambda: S3DIS_ARCH,
           "pointnet_embed_only": lambda: S3DIS_EMBED_ARCH,
           "tiny_s3dis": tiny_arch}
 
+# the other encoders of the JAX registry (train/model_zoo.py:305-321),
+# each called as (feat_dim, search_chunk=, dtype=)
+_ENCODERS = {
+    "pointnet2_s3dis": PointNet2Baseline,
+    "ecd_scannet": partial(ecd.ECDSegModel, specs=ecd.SCANNET_ECD_SPEC),
+    "ecd_s3dis": partial(ecd.ECDSegModel, specs=ecd.S3DIS_ECD_SPEC),
+    "pgnet_v3": partial(ecd.ECDSegModel, specs=ecd.PGNET_V3_SPEC),
+    "pgnet_v4": partial(ecd.ECDSegModel, specs=ecd.PGNET_V4_SPEC),
+    "pgnet_v5": partial(ecd.ECDSegModel, specs=ecd.PGNET_V5_SPEC),
+    "pgnet_v6": ecd.PGNetV6,
+    "pgnet_v7": ecd.PGNetV7,
+    "pgnet_v8": ecd.PGNetHybrid,
+}
+
 
 def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
                 device="cuda", **encoder_kw) -> SegmentationModel:
@@ -87,21 +107,30 @@ def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
     gets the same weights) or zeros without one, e.g. before loading a
     converted state_dict.  The model lives on ``device``: the card unless
     the caller asks for the CPU.  ``encoder_kw`` override PointNetSegEncoder
-    settings (win_tile, win_window, search_chunk).  The head is factored
-    (head_dim 512, premixed) unless the arch's decoder is the deconv, as
-    the JAX build_model factors it (train/model_zoo.py:346-353)."""
-    if cfg.model not in _ARCHS:
+    settings (win_tile, win_window, search_chunk); the other encoders take
+    ``search_chunk`` only, the one setting the JAX build passes them.  The
+    head is factored (head_dim 512, premixed) only for a PointNetSegEncoder
+    whose decoder is not the deconv, as the JAX build_model factors it
+    (train/model_zoo.py:346-353)."""
+    if cfg.model not in _ARCHS and cfg.model not in _ENCODERS:
         raise KeyError(f"unknown model '{cfg.model}'; ported: "
-                       f"{sorted(_ARCHS)}")
+                       f"{sorted(_ARCHS) + sorted(_ENCODERS)}")
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
     dtype = _DTYPES[cfg.compute_dtype]
     d = cfg.data
-    arch = _ARCHS[cfg.model]()
-    enc = PointNetSegEncoder(
-        d.feat_dim, arch=arch,
-        head_dim=None if arch.decoder == "deconv" else HEAD_DIM,
-        dtype=dtype, **encoder_kw)
+    if cfg.model in _ENCODERS:
+        extra = set(encoder_kw) - {"search_chunk"}
+        if extra:
+            raise TypeError(f"{cfg.model} takes only search_chunk, got "
+                            f"{sorted(extra)}")
+        enc = _ENCODERS[cfg.model](d.feat_dim, dtype=dtype, **encoder_kw)
+    else:
+        arch = _ARCHS[cfg.model]()
+        enc = PointNetSegEncoder(
+            d.feat_dim, arch=arch,
+            head_dim=None if arch.decoder == "deconv" else HEAD_DIM,
+            dtype=dtype, **encoder_kw)
     model = SegmentationModel(enc, d.num_classes, d.voxel_sizes, d.caps,
                               d.block_size, dtype=dtype)
     if generator is not None:
