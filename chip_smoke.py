@@ -94,6 +94,24 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    points; (c) K2 bit for bit and K3 under phase 6's rules at the
    narrowest and the widest rows the nine keys gather, timed as in
    phases 3 and 6.
+12. the GPN family and ModelNet40 classification at full width, no depth
+   cut, bf16 compute, seeded weights.  (a) ``gpn_seg`` (26 anchors, three
+   stages at 8192, 4096 and 1024 points, all windowed) takes one
+   ``Trainer`` step of 4 toy blocks of 8192 points with a finite loss and
+   both kernels' launches as ``gpn_gathers`` counts them per block, then 3
+   more steps timed (train points/s, peak memory); (b) its float32 logits
+   on one block agree with the CPU's argmax on at least 0.999 of the
+   valid points; (c) ``gpn_modelnet40`` takes ``Trainer`` steps on
+   batches of 32 seeded synthetic clouds of 1024 points with the port's
+   ``modelnet.prepare_cloud`` features (finite loss, 32 clouds counted,
+   clouds/s; no kernel runs: the JAX path builds the classifier's pyramid
+   unsorted and levels 1-2 are too small to window), and 8 clouds' float32
+   logits agree with the CPU's argmax; (d) the train CLI trains
+   ``--config modelnet40`` one epoch from a pkl of (xyz, label) pairs
+   with its test epoch (the JAX CLI's record, a finite loss), and
+   ``--restore --eval`` gives the test metrics bit for bit; (e) K2 bit for
+   bit and K3 under phase 6's rules at stage 0's widest and narrowest
+   float32 rows and the widest bf16 row, timed as in phases 3 and 6.
 
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
@@ -126,6 +144,11 @@ METRICS_KEYS = {"epoch", "train_loss", "lr", "miou", "oiou", "oacc", "iou",
 ECD_KEYS = ("ecd_scannet", "ecd_s3dis", "pgnet_v3", "pgnet_v4", "pgnet_v5",
             "pgnet_v6", "pgnet_v7", "pgnet_v8", "pointnet2_s3dis")
 ECD_ARGMAX_MIN = 0.999      # share of valid points with equal logit argmax
+MODELNET_POINTS = 1024      # phase 12: points per ModelNet40 cloud
+MODELNET_BATCH = 32         # clouds per classification training step
+MODELNET_PARITY = 8         # clouds in the float32 card-vs-CPU check
+MODELNET_CLI_CLOUDS = 16    # clouds in the CLI's pkl
+MODELNET_CLI_BATCH = 8
 ECD_TIMED_STEPS = 3         # training steps timed after the counted first
 DSLAB_F32_RTOL = 1e-6       # slab-gradient kernel vs plain, float32
 GRAD_COSINE_MIN = 0.999     # flat gradient, float32 card vs CPU
@@ -600,6 +623,30 @@ def k3_case(name, g, lidx, window, tile, card):
                 map=dict(max_abs_err=0.0, ms=map_ms, plain_ms=map_plain_ms,
                          bound_ms=map_bound, bound_by=map_by,
                          library_ms=sort_ms))
+
+
+def kernel_cases(cases, seed, card):
+    """K2 (``k2_case``) and K3 (``k3_case``) at each (name, N, K, F, dtype)
+    of ``cases``, on seeded random slab indices that read the slab's first
+    and last rows and one row from a third of the slots.  Returns (K2
+    rows, K3 rows)."""
+    import torch
+
+    tile = window = 256
+    s = tile + 2 * window
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k2_rows, k3_rows = [], []
+    for name, n, k, f, dtype in cases:
+        lidx = torch.randint(0, s, (n, k), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        lidx[:, 0] = 0
+        lidx[:, -1] = s - 1
+        lidx[::3, 1] = 7
+        feats = torch.randn((n, f), generator=gen, device="cuda").to(dtype)
+        k2_rows.append(k2_case(name, feats, lidx, window, tile, card))
+        g = torch.randn((n, k, f), generator=gen, device="cuda").to(dtype)
+        k3_rows.append(k3_case(name, g, lidx, window, tile, card))
+    return k2_rows, k3_rows
 
 
 def phase_dslab(model, cfg, card):
@@ -1378,26 +1425,12 @@ def phase_family(card):
 
     # (d) K2 and K3 at the new extreme widths: the pre-stage's 13-column
     # rows (float32: 52 B, and bf16: 26 B) and the widest row of the five
-    tile = window = 256
-    s = tile + 2 * window
-    gen = torch.Generator(device="cuda").manual_seed(10)
     pre = semantic3d_config().data
-    cases = [("pre-stage f32", pre.caps[0], 16, pre.feat_dim, torch.float32),
-             ("pre-stage bf16", pre.caps[0], 16, pre.feat_dim,
-              torch.bfloat16),
-             (f"widest ({widest[0]})", widest[1], widest[2], widest[3],
-              torch.bfloat16)]
-    k2_rows, k3_rows = [], []
-    for name, n, k, f, dtype in cases:
-        lidx = torch.randint(0, s, (n, k), generator=gen, device="cuda",
-                             dtype=torch.int32)
-        lidx[:, 0] = 0
-        lidx[:, -1] = s - 1
-        lidx[::3, 1] = 7
-        feats = torch.randn((n, f), generator=gen, device="cuda").to(dtype)
-        k2_rows.append(k2_case(name, feats, lidx, window, tile, card))
-        g = torch.randn((n, k, f), generator=gen, device="cuda").to(dtype)
-        k3_rows.append(k3_case(name, g, lidx, window, tile, card))
+    k2_rows, k3_rows = kernel_cases(
+        [("pre-stage f32", pre.caps[0], 16, pre.feat_dim, torch.float32),
+         ("pre-stage bf16", pre.caps[0], 16, pre.feat_dim, torch.bfloat16),
+         (f"widest ({widest[0]})", widest[1], widest[2], widest[3],
+          torch.bfloat16)], 10, card)
     return total, k2_rows, k3_rows
 
 
@@ -1476,16 +1509,53 @@ def ecd_gathers(model, cfg):
             and sizes[g[1]] >= 4 * 256]
 
 
-def ecd_per_block(cfg):
-    """Kernel launches per block of a forward and of a training step of an
-    ECD-family model, from ``ecd_gathers``."""
+def gathers_per_block(cfg, gathers_fn):
+    """Kernel launches per block of a forward and of a training step of
+    ``cfg``'s model, from the gathers ``gathers_fn(model, cfg)`` lists: K2
+    at each, K3 (map and sum kernels) at each that takes a gradient."""
     from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
 
-    gathers = ecd_gathers(build_model(cfg, None, "cpu"), cfg)
+    gathers = gathers_fn(build_model(cfg, None, "cpu"), cfg)
     trained = sum(g[-1] for g in gathers)
     return ({"window_gather": len(gathers)},
             {"window_gather": len(gathers), "window_dslab": trained,
              "window_dslab_map": trained})
+
+
+def ecd_per_block(cfg):
+    """Launches per block of an ECD-family model (``ecd_gathers``)."""
+    return gathers_per_block(cfg, ecd_gathers)
+
+
+def gpn_gathers(model, cfg):
+    """(what, level, K, F, dtype, grad) of every window-gather launch one
+    forward of ``gpn_seg`` makes on its windowed levels, in the order they
+    run: per stage the search's xyzm read (K its candidate pool, 4 float32
+    columns, no gradient), then each feats conv ``gc_{i}``'s gather of the
+    stage's running features (K the band's windowed slots, F their width).
+    They are float32 at stage 0, where the raw float32 input features
+    join them (jnp promotes the concat), and the compute dtype after; all
+    take a gradient, so a training step runs K3 on each."""
+    import torch
+
+    enc = model.encoder
+    sizes = (cfg.data.num_points,) + tuple(cfg.data.caps)
+    f32 = torch.float32
+    out = []
+    for s, sp in enumerate(enc.specs):
+        out.append(("search", s, min(4 * sp.k, sizes[s]), 4, f32, False))
+        dtype = f32 if s == 0 else enc.dtype or f32
+        stage = getattr(enc, f"stage{s}")
+        out.extend((f"stage{s}.gc_{i}", s, sp.k,
+                    getattr(stage, f"gc_{i}").ifn, dtype, True)
+                    for i in range(len(sp.gc_dims)))
+    return [g for g in out if sizes[g[1]] % 256 == 0
+            and sizes[g[1]] >= 4 * 256]
+
+
+def gpn_per_block(cfg):
+    """Launches per block of ``gpn_seg`` (``gpn_gathers``)."""
+    return gathers_per_block(cfg, gpn_gathers)
 
 
 def phase_ecd(card):
@@ -1588,25 +1658,262 @@ def phase_ecd(card):
 
     # (c) K2 and K3 at the narrowest and widest feature-gather rows (in
     # bytes) of the nine keys, the first of each in key order
-    tile = window = 256
-    s = tile + 2 * window
     row_bytes = lambda r: r[5] * r[6].itemsize  # noqa: E731
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    k2_rows, k3_rows = [], []
+    cases = []
     for what, pick in (("narrowest", min), ("widest", max)):
         key, n, conv, _, k, f, dtype, _ = pick(rows, key=row_bytes)
-        name = f"{what} ({key} {conv})"
-        lidx = torch.randint(0, s, (n, k), generator=gen, device="cuda",
-                             dtype=torch.int32)
-        lidx[:, 0] = 0
-        lidx[:, -1] = s - 1
-        lidx[::3, 1] = 7
-        feats = torch.randn((n, f), generator=gen, device="cuda").to(dtype)
-        k2_rows.append(k2_case(name, feats, lidx, window, tile, card))
-        g = torch.randn((n, k, f), generator=gen, device="cuda").to(dtype)
-        k3_rows.append(k3_case(name, g, lidx, window, tile, card))
+        cases.append((f"{what} ({key} {conv})", n, k, f, dtype))
+    k2_rows, k3_rows = kernel_cases(cases, 11, card)
     log(f"[ecd] per-key records: {json.dumps(records)}")
     return total, k2_rows, k3_rows, records
+
+
+def modelnet_pairs(seed, count, n=MODELNET_POINTS):
+    """``count`` seeded synthetic (xyz, label) pairs in the layout of a
+    prepared ModelNet40 pkl: Gaussian clouds of n points whose label
+    decides which axis is stretched and by how much."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(count):
+        label = int(rng.randint(0, 40))
+        xyz = rng.randn(n, 3).astype(np.float32)
+        xyz[:, label % 3] *= 1.5 + label // 3 * 0.25
+        out.append((xyz, label))
+    return out
+
+
+def modelnet_batch(pairs, seed):
+    """The pairs through ``modelnet.prepare_cloud`` (unit sphere, the 9
+    covariance features) into one batch of padded clouds."""
+    import numpy as np
+
+    from pointcloudsegmentation_tpu_torch.data import modelnet
+    from pointcloudsegmentation_tpu_torch.data.batching import (pad_block,
+                                                                stack_blocks)
+
+    rng = np.random.RandomState(seed)
+    clouds = [modelnet.prepare_cloud(x, lab, rng=rng) for x, lab in pairs]
+    return stack_blocks([pad_block(c["xyz"], c["feats"], c["labels"],
+                                   MODELNET_POINTS, rng) for c in clouds])
+
+
+def phase_gpn(card):
+    """12: the GPN family and ModelNet40 classification at full width, no
+    depth cut, bf16 compute with f32 params and seeded weights.  (a)
+    ``gpn_seg`` under ``s3dis_config``: one counted Trainer step of
+    TRAIN_BLOCKS toy blocks of 8192 points (launches as ``gpn_gathers``
+    counts them per block), then ECD_TIMED_STEPS timed; (b) its float32
+    logits on one block against the CPU's argmax; (c) ``gpn_modelnet40``:
+    Trainer steps on MODELNET_BATCH seeded synthetic clouds (no kernel
+    runs: the global search at every level), a float32 argmax check on
+    MODELNET_PARITY clouds; (d) the train CLI's ``--config modelnet40``
+    from a pkl of (xyz, label) pairs, then ``--restore --eval``; (e) K2
+    and K3 at stage 0's widest and narrowest float32 rows and the widest
+    bf16 row.  Returns (launches, K2 rows, K3 rows, record)."""
+    import dataclasses
+    import math
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.config import (modelnet40_config,
+                                                         s3dis_config)
+    from pointcloudsegmentation_tpu_torch.data import toy
+    from pointcloudsegmentation_tpu_torch.train import cli
+    from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    record = {}
+    # (a) gpn_seg trains
+    cfg = s3dis_config(model="gpn_seg")
+    batch = next(toy.toy_batches(1, batch_size=TRAIN_BLOCKS,
+                                 num_points=N_POINTS, num_classes=13,
+                                 feat_dim=12))
+    gathers = gpn_gathers(build_model(cfg, None, "cpu"), cfg)
+    fwd, step = gpn_per_block(cfg)
+    for what, lvl, k, f, dtype, _ in gathers:
+        log(f"[gpn] gpn_seg gather {what}: level {lvl}, K={k}, F={f}, "
+            f"{dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    log(f"[gpn] gpn_seg: {trainer.num_params} params, decoder "
+        f"{trainer.model.encoder.out_width} columns, launches per block "
+        f"{fwd} forward, {step} training step")
+    (state, m), launches, first = run_path(
+        f"gpn_seg train step ({TRAIN_BLOCKS} x {N_POINTS} points)",
+        lambda: trainer.train_step(state, batch), times(step, TRAIN_BLOCKS))
+    loss = float(m["loss"])
+    check(math.isfinite(loss) and int(m["skipped"]) == 0,
+          f"gpn_seg train step loss {loss}")
+
+    def timed():
+        st = state
+        for _ in range(ECD_TIMED_STEPS):
+            st, mm = trainer.train_step(st, batch)
+        torch.cuda.synchronize()
+        return st, mm
+
+    (state, m), counts, secs = run_path(
+        f"gpn_seg {ECD_TIMED_STEPS} timed train steps", timed,
+        times(step, TRAIN_BLOCKS * ECD_TIMED_STEPS))
+    launches = plus(launches, counts)
+    check(math.isfinite(float(m["loss"])), "gpn_seg timed step loss")
+    pps = int(batch["mask"].sum()) * ECD_TIMED_STEPS / secs
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[gpn] gpn_seg: first step loss {loss:.5f} in {first:.2f} s "
+        f"(set-up included); {secs / ECD_TIMED_STEPS:.4f} s a step over "
+        f"{ECD_TIMED_STEPS} steps, {pps:.1f} train points/s, peak "
+        f"{peak:.3f} GiB [{card}]")
+    record.update(gpn_seg_params=trainer.num_params, gpn_seg_loss=loss,
+                  gpn_seg_step_s=secs / ECD_TIMED_STEPS,
+                  gpn_seg_train_points_per_sec=pps, gpn_seg_peak_gib=peak)
+    del trainer, state, m
+    torch.cuda.empty_cache()
+
+    def f32_logits(cfg32, blocks):
+        """Each block's float32 logits on the card and on the CPU."""
+        out = {}
+        for dev in ("cuda", "cpu"):
+            mdl = build_model(cfg32, torch.Generator().manual_seed(0), dev)
+            with torch.inference_mode():
+                out[dev] = [mdl(*(torch.from_numpy(b[k]).to(dev)
+                                  for k in ("xyz", "feats", "mask"))).cpu()
+                            for b in blocks]
+            del mdl
+        return out
+
+    # (b) gpn_seg float32 parity on the batch's first block
+    logits = f32_logits(dataclasses.replace(cfg, compute_dtype="float32"),
+                        [{k: batch[k][0] for k in ("xyz", "feats",
+                                                   "mask")}])
+    card_l, cpu_l = logits["cuda"][0], logits["cpu"][0]
+    valid = torch.from_numpy(batch["mask"][0])
+    check(bool(torch.isfinite(card_l).all()), "gpn_seg f32 logits")
+    agree = float((card_l.argmax(1) == cpu_l.argmax(1))[valid]
+                  .double().mean())
+    log(f"[gpn] gpn_seg float32 logits card vs CPU: argmax agreement "
+        f"{agree:.6f} over {int(valid.sum())} valid points (need >= "
+        f"{ECD_ARGMAX_MIN}), max |d| {(card_l - cpu_l).abs().max():.3e} "
+        f"[{card}]")
+    check(agree >= ECD_ARGMAX_MIN, f"gpn_seg argmax agreement {agree}")
+    record["gpn_seg_argmax_agreement"] = agree
+
+    # (c) gpn_modelnet40 trains on synthetic clouds
+    mcfg = modelnet40_config()
+    mbatch = modelnet_batch(modelnet_pairs(1, MODELNET_BATCH), 1)
+    trainer = Trainer(mcfg, device="cuda")
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    log(f"[gpn] gpn_modelnet40: {trainer.num_params} params, cloud "
+        f"descriptor {trainer.model.encoder.out_width} columns; no "
+        f"windowed level (level 0 unsorted, caps {mcfg.data.caps}), so no "
+        f"kernel launches")
+    mloss = []
+
+    def class_steps(n):
+        """n steps with one sync after them, as gpn_seg's timed loop; each
+        step's loss and count are read after the sync."""
+        nonlocal state
+        metrics = []
+        for _ in range(n):
+            state, mm = trainer.train_step(state, mbatch)
+            metrics.append(mm)
+        torch.cuda.synchronize()
+        return metrics
+
+    def check_class(metrics):
+        for mm in metrics:
+            mloss.append(float(mm["loss"]))
+            check(math.isfinite(mloss[-1]) and int(mm["count"])
+                  == MODELNET_BATCH, f"gpn_modelnet40 step loss "
+                  f"{mloss[-1]}, count {int(mm['count'])}")
+
+    metrics, _, first = run_path(f"gpn_modelnet40 train step "
+                                 f"({MODELNET_BATCH} clouds of "
+                                 f"{MODELNET_POINTS} points)",
+                                 lambda: class_steps(1), {})
+    check_class(metrics)
+    metrics, _, secs = run_path(f"gpn_modelnet40 {ECD_TIMED_STEPS} timed "
+                                f"train steps",
+                                lambda: class_steps(ECD_TIMED_STEPS), {})
+    check_class(metrics)
+    cps = MODELNET_BATCH * ECD_TIMED_STEPS / secs
+    log(f"[gpn] gpn_modelnet40: losses {mloss} (count {MODELNET_BATCH} "
+        f"clouds a step), first step {first:.2f} s (set-up included); "
+        f"{secs / ECD_TIMED_STEPS:.4f} s a step, {cps:.1f} train clouds/s "
+        f"[{card}]")
+    record.update(modelnet_params=trainer.num_params, modelnet_loss=mloss,
+                  modelnet_step_s=secs / ECD_TIMED_STEPS,
+                  modelnet_clouds_per_sec=cps)
+    del trainer, state
+    torch.cuda.empty_cache()
+    logits = f32_logits(
+        dataclasses.replace(mcfg, compute_dtype="float32"),
+        [{k: mbatch[k][i] for k in ("xyz", "feats", "mask")}
+         for i in range(MODELNET_PARITY)])
+    card_l, cpu_l = torch.stack(logits["cuda"]), torch.stack(logits["cpu"])
+    check(bool(torch.isfinite(card_l).all()), "gpn_modelnet40 f32 logits")
+    agree = float((card_l.argmax(1) == cpu_l.argmax(1)).double().mean())
+    log(f"[gpn] gpn_modelnet40 float32 logits of {MODELNET_PARITY} clouds "
+        f"card vs CPU: argmax agreement {agree:.6f} (need >= "
+        f"{ECD_ARGMAX_MIN}), max |d| {(card_l - cpu_l).abs().max():.3e} "
+        f"[{card}]")
+    check(agree >= ECD_ARGMAX_MIN, f"gpn_modelnet40 argmax agreement {agree}")
+    record["modelnet_argmax_agreement"] = agree
+
+    # (d) the train CLI on a ModelNet40 pkl, then --restore --eval
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_modelnet_")
+    try:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        with open(os.path.join(data, "clouds.pkl"), "wb") as f:
+            pickle.dump(modelnet_pairs(2, MODELNET_CLI_CLOUDS), f)
+        base = ["--config", "modelnet40", "--data-dir", data,
+                "--batch-size", str(MODELNET_CLI_BATCH), "--checkpoint-dir",
+                os.path.join(tmp, "ck")]
+        run_path(f"train CLI modelnet40 ({MODELNET_CLI_CLOUDS} clouds, "
+                 f"batches of {MODELNET_CLI_BATCH}, with its test epoch)",
+                 lambda: cli.main(base + ["--epochs", "1", "--metrics-file",
+                                          os.path.join(tmp, "train.jsonl")]),
+                 {})
+        rec, = read_records(os.path.join(tmp, "train.jsonl"))
+        check(set(rec) == METRICS_KEYS, f"metrics record keys {sorted(rec)}")
+        check(math.isfinite(rec["train_loss"]), f"modelnet CLI loss {rec}")
+        check(len(rec["iou"]) == 40, "modelnet CLI: 40 classes")
+        run_path("train CLI modelnet40 --restore --eval",
+                 lambda: cli.main(base + ["--restore", "--eval",
+                                          "--metrics-file",
+                                          os.path.join(tmp, "eval.jsonl")]),
+                 {})
+        ev, = read_records(os.path.join(tmp, "eval.jsonl"))
+        for key in ("miou", "oiou", "oacc", "iou", "acc"):
+            check(ev[key] == rec[key], f"modelnet --restore --eval {key} "
+                  f"{ev[key]} differs from the epoch's {rec[key]}")
+        log(f"[gpn] train CLI modelnet40: train loss "
+            f"{rec['train_loss']:.5f}, test oAcc {rec['oacc']!r}, mIoU "
+            f"{rec['miou']!r}; --restore --eval gives them bit for bit "
+            f"[{card}]")
+        record["modelnet_cli_train_loss"] = rec["train_loss"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (e) K2 and K3 at GPN's new widths
+    sizes = (cfg.data.num_points,) + tuple(cfg.data.caps)
+    convs = [g for g in gathers if g[0] != "search"]
+    f32rows = [g for g in convs if g[4] == torch.float32]
+    bfrows = [g for g in convs if g[4] == torch.bfloat16]
+    picks = (("widest f32", max(f32rows, key=lambda g: g[3])),
+             ("narrowest f32", min(f32rows, key=lambda g: g[3])),
+             ("widest bf16", max(bfrows, key=lambda g: g[3])))
+    k2_rows, k3_rows = kernel_cases(
+        [(f"gpn {what} ({conv})", sizes[lvl], k, f, dtype)
+         for what, (conv, lvl, k, f, dtype, _) in picks], 12, card)
+    log(f"[gpn] record: {json.dumps(record)}")
+    return launches, k2_rows, k3_rows, record
 
 
 def main() -> int:
@@ -1657,6 +1964,12 @@ def main() -> int:
     rows += k2_ecd
     drows += k3_ecd
     entry_launches = plus(entry_launches, ecd_launches)
+    t12 = time.perf_counter()
+    gpn_launches, k2_gpn, k3_gpn, _ = phase_gpn(card)
+    log(f"[gpn] phase 12 in {time.perf_counter() - t12:.1f} s")
+    rows += k2_gpn
+    drows += k3_gpn
+    entry_launches = plus(entry_launches, gpn_launches)
 
     main_row = next(r for r in rows if r["name"].endswith("conv"))
     dmain, fmain = drows[0], frows[0]
@@ -1667,8 +1980,8 @@ def main() -> int:
         f"{dmain['dtype']} (slab gradient: map and sum kernels; the map "
         f"alone in its own row) and {fmain['name']} "
         f"{fmain['dtype']} (fused conv); launches are the serve sweep's plus "
-        f"one training step's, the entry points', the PointNet family's and "
-        f"the ECD family's, "
+        f"one training step's, the entry points', the PointNet family's, "
+        f"the ECD family's and the GPN family's, "
         f"and the fused-conv bench's; eval {pps:.1f} "
         f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "
         f"GiB")

@@ -92,10 +92,22 @@ def semantic3d_config(**overrides) -> TrainConfig:
     return _replace(base, overrides)
 
 
+def modelnet40_config(**overrides) -> TrainConfig:
+    """The ModelNet40 preset: one label per cloud of 1024 unit-normalised
+    points, the 9 covariance features (JAX ``train/config.py:92-98``)."""
+    base = TrainConfig(
+        model="gpn_modelnet40",
+        data=DataConfig(num_points=1024, num_classes=40, block_size=2.0,
+                        voxel_sizes=(0.2, 0.5), caps=(384, 96), feat_dim=9),
+        optim=OptimConfig(epoch_steps=2460, decay_epoch=50))
+    return _replace(base, overrides)
+
+
 CONFIGS = {
     "s3dis": s3dis_config,
     "scannet": scannet_config,
     "semantic3d": semantic3d_config,
+    "modelnet40": modelnet40_config,
 }
 
 

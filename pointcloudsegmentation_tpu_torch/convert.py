@@ -5,8 +5,9 @@ Submodules keep the flax names, so a flax path maps to a torch key one to
 one: ``params/encoder/feats0/fc_0_nbr/kernel`` becomes
 ``encoder.feats0.fc_0_nbr.weight``.  Flax ``Dense`` kernels are [in, out];
 torch ``Linear`` weights are [out, in], so kernels are transposed.  The
-other leaves, biases, ``MaskedBatchNorm``'s ``scale`` and the ECD convs'
-``edge_weights_trans``, keep their names and flax shapes.
+other leaves, biases, ``MaskedBatchNorm``'s ``scale``, the ECD convs'
+``edge_weights_trans`` and the GPN convs' ``pw``, keep their names and
+flax shapes.
 
 The trainer keeps every parameter in one flat float32 vector laid out as
 ``jax.flatten_util.ravel_pytree`` lays out the flax tree (``ravel_layout``):
@@ -22,7 +23,7 @@ from torch import nn
 
 # flax leaf -> torch parameter name; only a Dense kernel is transposed
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "scale",
-         "edge_weights_trans": "edge_weights_trans"}
+         "edge_weights_trans": "edge_weights_trans", "pw": "pw"}
 _FLAX_LEAF = {v: k for k, v in _LEAF.items()}
 
 
@@ -42,8 +43,8 @@ def _params_tree(params: Mapping) -> Mapping:
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """Nested mapping of numpy arrays (with or without the top-level
     ``params`` collection) -> {torch key: float32 tensor}.  Raises on a leaf
-    that is not a Dense kernel or bias, a batch-norm scale or an
-    ``edge_weights_trans``."""
+    that is not a Dense kernel or bias, a batch-norm scale, an
+    ``edge_weights_trans`` or a ``pw``."""
     out = {}
     for path, leaf in _flatten(_params_tree(params)):
         if path[-1] not in _LEAF:

@@ -1,12 +1,13 @@
 """Input pipeline of the port: its own numpy copies of the JAX package's
 data modules (``io_util``, ``augment``, ``s3dis``, ``scannet``,
-``semantic3d``, ``synth_rooms``, ``toy``, ``batching``), the native host
-library's binding (``native``), and the background-thread ``Provider`` with
-the device transfer (``provider``).  ``blocks_fn_for`` and ``read_fn_for`` pick a
-config's reader of prepared pkls for the train CLI and the scene eval."""
+``semantic3d``, ``modelnet``, ``synth_rooms``, ``toy``, ``batching``), the
+native host library's binding (``native``), and the background-thread
+``Provider`` with the device transfer (``provider``).  ``blocks_fn_for`` and
+``read_fn_for`` pick a config's reader of prepared pkls for the train CLI
+and the scene eval."""
 from functools import partial
 
-from . import io_util, s3dis, scannet, semantic3d
+from . import io_util, modelnet, s3dis, scannet, semantic3d
 
 
 def blocks_fn_for(cfg, config_name: str):
@@ -24,7 +25,10 @@ def blocks_fn_for(cfg, config_name: str):
 
 def read_fn_for(cfg, config_name: str):
     """The Provider read_fn of the config's dataset: (model, pkl path) ->
-    block dicts, as ``blocks_fn_for`` builds them."""
+    block dicts, as ``blocks_fn_for`` builds them; for ModelNet40 one cloud
+    dict per ``(xyz, label)`` pair (``modelnet.clouds_from_pkl``)."""
+    if config_name == "modelnet40":
+        return modelnet.clouds_from_pkl
     return partial(_read, blocks_fn_for(cfg, config_name))
 
 

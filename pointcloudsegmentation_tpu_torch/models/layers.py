@@ -2,8 +2,9 @@
 
 Submodule names follow the flax modules (``fc_{i}``, ``fc_out``,
 ``fc_embed``, ``mlp``, ``class_mlp{i}``) so that a flax parameter tree maps
-onto a ``state_dict`` one to one (``convert.py``).  Weights are float32;
-``dtype`` is the compute dtype (None = float32)."""
+onto a ``state_dict`` one to one (``convert.py``); ``GPNConv``'s raw
+parameters (``pw``, ``bias``) keep their flax names and shapes.  Weights
+are float32; ``dtype`` is the compute dtype (None = float32)."""
 from __future__ import annotations
 
 import math
@@ -13,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import anchors as anchor_gen
 from ..ops import neighbors as nb
 
 
@@ -35,8 +37,7 @@ class Dense(nn.Linear):
 
     @torch.no_grad()
     def init_glorot_(self, generator: torch.Generator) -> None:
-        limit = math.sqrt(6.0 / (self.in_features + self.out_features))
-        self.weight.uniform_(-limit, limit, generator=generator)
+        glorot_(self.weight, self.in_features, self.out_features, generator)
         if self.bias is not None:
             self.bias.zero_()
 
@@ -48,10 +49,20 @@ class Dense(nn.Linear):
         return y
 
 
+def glorot_(w: torch.Tensor, fan_in: int, fan_out: int,
+            generator: torch.Generator) -> None:
+    """Glorot-uniform draw in place: U(-l, l), l = sqrt(6 / (in + out))."""
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    w.uniform_(-limit, limit, generator=generator)
+
+
 def init_glorot_(module: nn.Module, generator: torch.Generator) -> None:
-    """Initialize every Dense under ``module`` in ``named_modules`` order."""
+    """Draw every Glorot-initialised weight under ``module`` in
+    ``named_modules`` order: each Dense's, and the ``pw`` of each
+    ``GPNConv`` (the modules with their own ``init_glorot_``); biases go
+    to zero."""
     for _, m in module.named_modules():
-        if isinstance(m, Dense):
+        if callable(getattr(m, "init_glorot_", None)):
             m.init_glorot_(generator)
 
 
@@ -216,6 +227,73 @@ class PointNetPoolMLP(nn.Module):
 
     def forward(self, dxyz: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
         return self.mlp(torch.cat([dxyz, feats], dim=-1))
+
+
+def anchored_sum(lw: torch.Tensor, edge: torch.Tensor) -> torch.Tensor:
+    """``einsum("nkm,nkf->nmf")`` in the dtype jnp promotes the two to
+    (float32 for float32 weights), as the JAX layers compute it."""
+    dt = torch.promote_types(lw.dtype, edge.dtype)
+    return torch.einsum("nkm,nkf->nmf", lw.to(dt), edge.to(dt))
+
+
+class GPNConv(nn.Module):
+    """Gaussian-anchored location-weighted conv (the "GPN" conv; JAX
+    ``models/layers.py:263-332``, as ``GPNStage`` builds it: ``no_sum``):
+    location weights ``lw = exp(sxyz · pmiu)`` [N, K, m] over valid slots,
+    and per anchor ``Σ_k lw · (cfeats @ pw) / (Σ_k lw + 1e-6)``, factored
+    as ``agg = einsum("nkm,nkf->nmf", lw, cfeats)`` then
+    ``einsum("nmf,fmo->nmo", agg, pw)``, so no [N, K, m, out] tensor
+    exists; flattened to [N, m·out], plus ``bias``, then ReLU.
+
+    ``mode`` picks cfeats: ``xyz`` the slot offsets sxyz [N, K, 3],
+    ``feats`` the gathered neighbor features.  The weights, the
+    aggregation and the output are float32 whatever the gathered
+    features' dtype (a float32 ``pw`` promotes them, as in JAX).  ``pw``
+    [ifn, m·out] is the raw flax parameter.  ``pmiu`` [3, m], the anchor
+    directions, is a constant computed once at construction (a buffer
+    left out of the ``state_dict``: the flax tree has no leaf for it).  A
+    conv built with ``shared_lw`` has none and takes the ``lw``/``lw_sum``
+    another conv of its stage returned (the flax module creates no
+    ``pmiu`` when it is given them).  Returns (out, lw, lw_sum)."""
+
+    def __init__(self, in_dim: int, m: int, out_dim: int, mode: str,
+                 shared_lw: bool = False):
+        super().__init__()
+        if mode not in ("xyz", "feats"):
+            raise ValueError(f"mode must be xyz or feats: {mode}")
+        self.mode, self.m, self.out_dim = mode, m, out_dim
+        self.ifn = 3 if mode == "xyz" else in_dim
+        self.pw = nn.Parameter(torch.zeros(self.ifn, m * out_dim))
+        self.bias = nn.Parameter(torch.zeros(m * out_dim))
+        self.shared_lw = shared_lw
+        if not shared_lw:
+            self.register_buffer("pmiu", torch.from_numpy(
+                anchor_gen.cached_sphere_anchors(m)), persistent=False)
+
+    @torch.no_grad()
+    def init_glorot_(self, generator: torch.Generator) -> None:
+        glorot_(self.pw, self.ifn, self.m * self.out_dim, generator)
+        self.bias.zero_()
+
+    def forward(self, sxyz: torch.Tensor, feats: Optional[torch.Tensor],
+                nbr, lw: Optional[torch.Tensor] = None,
+                lw_sum: Optional[torch.Tensor] = None):
+        """sxyz [N, K, 3] float32 (raw offsets), feats [N, F] or None ->
+        (out [N, m·out], lw [N, K, m], lw_sum [N, m])."""
+        cfeats = sxyz if self.mode == "xyz" else \
+            nb.gather_neighbors(feats, nbr)
+        if lw is None:
+            if self.shared_lw:
+                raise ValueError("a shared_lw GPNConv needs lw and lw_sum")
+            lw = torch.exp(sxyz @ self.pmiu)
+            lw = lw * nbr.mask[..., None].to(lw.dtype)
+            lw_sum = lw.sum(dim=1)
+        agg = anchored_sum(lw, cfeats)
+        pw3 = self.pw.view(self.ifn, self.m, self.out_dim)
+        num = torch.einsum("nmf,fmo->nmo", agg, pw3.to(agg.dtype))
+        out = num / (lw_sum[..., None] + 1e-6)
+        return torch.relu(out.reshape(out.shape[0], -1) + self.bias), lw, \
+            lw_sum
 
 
 class SegClassifier(nn.Module):

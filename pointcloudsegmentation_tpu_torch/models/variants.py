@@ -1,11 +1,12 @@
-"""The ECD conv variants and the masked batch norm of the PGNet models
-(mirror of part of ``pointcloudsegmentation_tpu.models.variants``):
-``ECDFeatsV4`` (pgnet_v7's conv), and ``MaskedBatchNorm``, ``ECDXyzV2``
-and ``ECDFeatsV2`` (pgnet_v6's).
+"""The conv variants of the reference zoo (mirror of
+``pointcloudsegmentation_tpu.models.variants``): ``ECDFeatsV4`` (pgnet_v7's
+conv), ``MaskedBatchNorm``, ``ECDXyzV2`` and ``ECDFeatsV2`` (pgnet_v6's),
+and ``DiffusionAnchorConv`` v1-v3 (on no registry key's path yet: the
+template models give it one).
 
 Submodule and parameter names are the flax ones, so ``convert.py`` maps
-the trees one to one; the two non-Dense leaves, ``edge_weights_trans``
-and the batch norm's ``scale``, keep their flax shapes.  Dtypes follow the
+the trees one to one; the non-Dense leaves (``edge_weights_trans``, the
+batch norm's ``scale``) keep their flax shapes.  Dtypes follow the
 JAX layers: each Dense returns the compute dtype, and mixing it with a
 float32 tensor or parameter promotes as jnp does.  Where a JAX layer
 gathers one tensor twice (``neighbor_diff`` and ``gather_neighbors``), it
@@ -18,7 +19,7 @@ import torch
 from torch import nn
 
 from ..ops import neighbors as nb
-from .layers import Dense, add_growth, growth
+from .layers import Dense, add_growth, anchored_sum, growth
 
 
 def l2_normalise(ew: torch.Tensor) -> torch.Tensor:
@@ -142,3 +143,58 @@ class ECDFeatsV2(nn.Module):
         x = growth(self, "embed_fc_", nt, ew * edge, False)
         out = torch.relu(self.out_embed_fc(nb.masked_mean_eps(x, nbr)))
         return self.out_bn(out, mask)
+
+
+class DiffusionAnchorConv(nn.Module):
+    """The edge-condition diffusion-anchor convs v1-v3
+    (``edge_condition_diffusion_anchor``; JAX ``models/variants.py:
+    264-329``): a growth MLP (``fc_weights_{i}``, new first,
+    ``fc_weights_final``) on sxyz predicts per-slot anchor weights, which
+    weigh the gathered neighbor features, summed per anchor and projected
+    by ``fc_out``.  v1: ``exp(clip(w, ±10)) + 1e-5`` normalised by the
+    per-anchor weight sum, raw features, ReLU out; v2: sigmoid weights on
+    features embedded to [an·ed] (``fc_embed``), divided by the valid
+    count, ReLU out; v3: l2-normalised weights as v2, linear out.  (v4 is
+    ``ecd.MLPAnchorConv``.)"""
+
+    def __init__(self, in_dim: int, version: int, anchor_num: int,
+                 out_dim: int, weights_dims: Sequence[int],
+                 embed_dim: int = 0, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if version not in (1, 2, 3):
+            raise ValueError(f"version must be 1, 2 or 3: {version}")
+        self.version, self.an, self.ed = version, anchor_num, embed_dim
+        self.n_w = len(weights_dims)
+        if version == 1:
+            width = in_dim
+        else:
+            self.fc_embed = Dense(in_dim, anchor_num * embed_dim, dtype=dtype)
+            width = embed_dim
+        w = add_growth(self, "fc_weights_", 3, weights_dims, dtype)
+        self.fc_weights_final = Dense(w, anchor_num, dtype=dtype)
+        self.fc_out = Dense(anchor_num * width, out_dim, dtype=dtype)
+
+    def forward(self, sxyz: torch.Tensor, feats: torch.Tensor,
+                nbr) -> torch.Tensor:
+        n, k = sxyz.shape[:2]
+        pfeats = feats if self.version == 1 else self.fc_embed(feats)
+        ew = self.fc_weights_final(growth(self, "fc_weights_", self.n_w,
+                                          sxyz, True))
+        if self.version == 1:
+            ew = torch.exp(ew.clamp(-10.0, 10.0)) + 1e-5
+        elif self.version == 2:
+            ew = torch.sigmoid(ew)
+        else:
+            ew = l2_normalise(ew)
+        ew = ew * nbr.mask[..., None].to(ew.dtype)
+        edge = nb.gather_neighbors(pfeats, nbr)
+        if self.version == 1:
+            wf = anchored_sum(ew, edge)
+            wf = wf / ew.sum(dim=1)[..., None].clamp(min=1e-12)
+            return torch.relu(self.fc_out(wf.reshape(n, -1)))
+        edge = edge.reshape(n, k, self.an, self.ed)
+        dt = torch.promote_types(ew.dtype, edge.dtype)
+        wf = torch.einsum("nka,nkae->nae", ew.to(dt), edge.to(dt))
+        wf = wf.reshape(n, -1) / nbr.counts()[:, None].clamp(min=1.0)
+        out = self.fc_out(wf)
+        return torch.relu(out) if self.version == 2 else out

@@ -9,12 +9,15 @@ Examples:
       --synthetic --epochs 2 --steps-per-epoch 50   # no dataset required
   python -m pointcloudsegmentation_tpu_torch.train.cli --config semantic3d \
       --data-dir data/Semantic3D/sampled_train   # semantic3d.save_blocks pkls
+  python -m pointcloudsegmentation_tpu_torch.train.cli --config modelnet40 \
+      --data-dir data/ModelNet40/train   # pkls of (xyz, label) pairs
 
-It runs on the card (``--device cuda``) unless ``--device cpu`` is given,
-and raises where there is no card.  The JAX CLI's ``modelnet40`` config,
-its ``dense_semantic3d`` and ``context_semantic3d`` readers,
-``--use-diffusion`` and the device mesh (``--no-mesh``) are not ported yet
-(ROADMAP.md).
+``--config modelnet40`` trains the ``gpn_modelnet40`` classifier: one
+label per cloud, and the metrics count clouds.  It runs on the card
+(``--device cuda``) unless ``--device cpu`` is given, and raises where
+there is no card.  The JAX CLI's ``dense_semantic3d`` and
+``context_semantic3d`` readers, ``--use-diffusion`` and the device mesh
+(``--no-mesh``) are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 

@@ -8,7 +8,10 @@ Every parameter lives in one flat float32 vector in the JAX trainer's
 ``ravel_pytree`` order (``convert.ravel_layout``); the model's parameters
 are views into it and their ``.grad``s views into a flat gradient buffer,
 so backward accumulates straight into the flat gradient and Adam runs on
-one vector.  Only per-point segmentation logits [N, C] are handled.
+one vector.  A block's logits are per point [N, C] (segmentation) or one
+row [C] per cloud (classification, as the JAX trainer's branch at
+``train/loop.py:437-442``: the cloud's label is its first point's, and it
+counts where any of its points is valid).
 """
 from __future__ import annotations
 
@@ -243,9 +246,16 @@ class Trainer:
                 logits = self.model(batch["xyz"][b], batch["feats"][b],
                                     batch["mask"][b], train=train,
                                     generator=gen)
+                labels, mask = batch["labels"][b], batch["mask"][b]
+                if logits.dim() == 1:
+                    # one cloud: its logits, its label, and whether it has
+                    # a valid point (a padding cloud of a test batch has
+                    # none and counts nothing)
+                    logits, labels, mask = (logits[None], labels[:1],
+                                            mask.any()[None])
                 s, w, labels_eff, valid = seg_loss_terms(
-                    logits, batch["labels"][b], batch["mask"][b],
-                    self.class_weights, d.ignore_label)
+                    logits, labels, mask, self.class_weights,
+                    d.ignore_label)
                 if grad:
                     s.backward()
                 s_acc += s.detach()

@@ -1,7 +1,10 @@
 """Model registry: config key -> end-to-end module (Morton sort + pyramid +
 encoder + head), mirroring ``pointcloudsegmentation_tpu.train.model_zoo``
-for its ``PointNetSegEncoder`` keys (``_ARCHS``), ``tiny_s3dis``, the ECD
-and PGNet families and the PointNet++ baseline (``_ENCODERS``)."""
+for its ``PointNetSegEncoder`` keys (``_ARCHS``), ``tiny_s3dis``, the ECD,
+PGNet and GPN segmentation nets and the PointNet++ baseline
+(``_ENCODERS``), and the ModelNet40 classifier ``gpn_modelnet40``
+(``_CLASSIFIERS``: unsorted pyramid + encoder + ``ClassifierHead`` -> one
+row of logits per cloud)."""
 from __future__ import annotations
 
 from functools import partial
@@ -11,7 +14,7 @@ import torch
 from torch import nn
 
 from ..config import TrainConfig
-from ..models import ecd
+from ..models import ecd, gpn
 from ..models.layers import SegClassifier, init_glorot_
 from ..models.pointnet import (HEAD_DIM, S3DIS_ARCH,
                                S3DIS_BASELINE20_ARCH,
@@ -24,6 +27,33 @@ from ..ops import hierarchy as hier
 from ..ops import morton
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+class ClassificationModel(nn.Module):
+    """Per-cloud pipeline for ModelNet40 (JAX ``train/model_zoo.py:
+    186-202``): the voxel pyramid of the cloud as it comes (no Morton sort,
+    so level 0 takes the global search), the encoder's cloud descriptor,
+    then ``ClassifierHead`` -> logits [C]."""
+
+    def __init__(self, encoder: nn.Module, num_classes: int,
+                 voxel_sizes: Tuple[float, ...], caps: Tuple[int, ...],
+                 block_size: float, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.encoder = encoder
+        self.head = gpn.ClassifierHead(num_classes, encoder.out_width,
+                                       dtype=dtype)
+        self.voxel_sizes = tuple(voxel_sizes)
+        self.caps = tuple(caps)
+        self.block_size = block_size
+
+    def forward(self, xyz: torch.Tensor, feats: torch.Tensor,
+                mask: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """xyz [N, 3], feats [N, F], mask [N] -> logits [C]."""
+        pyr = hier.build_pyramid(xyz, mask, self.voxel_sizes, self.caps,
+                                 self.block_size)
+        vec = self.encoder(pyr, feats)
+        return self.head(vec[None, :], train, generator)[0]
 
 
 class SegmentationModel(nn.Module):
@@ -85,7 +115,7 @@ _ARCHS = {"pointnet_s3dis": lambda: S3DIS_ARCH,
           "pointnet_embed_only": lambda: S3DIS_EMBED_ARCH,
           "tiny_s3dis": tiny_arch}
 
-# the other encoders of the JAX registry (train/model_zoo.py:305-321),
+# the other encoders of the JAX registry (train/model_zoo.py:305-324),
 # each called as (feat_dim, search_chunk=, dtype=)
 _ENCODERS = {
     "pointnet2_s3dis": PointNet2Baseline,
@@ -97,42 +127,52 @@ _ENCODERS = {
     "pgnet_v6": ecd.PGNetV6,
     "pgnet_v7": ecd.PGNetV7,
     "pgnet_v8": ecd.PGNetHybrid,
+    "gpn_seg": gpn.GPNSegModel,
 }
+
+# the classification keys (JAX train/model_zoo.py:365-367), encoders called
+# as the _ENCODERS are
+_CLASSIFIERS = {"gpn_modelnet40": gpn.GPNClassModel}
 
 
 def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
-                device="cuda", **encoder_kw) -> SegmentationModel:
+                device="cuda", **encoder_kw) -> nn.Module:
     """Build ``cfg.model`` with ``cfg.compute_dtype`` compute.  Weights are
     Glorot-uniform draws from ``generator`` (on the CPU, so every device
     gets the same weights) or zeros without one, e.g. before loading a
     converted state_dict.  The model lives on ``device``: the card unless
     the caller asks for the CPU.  ``encoder_kw`` override PointNetSegEncoder
     settings (win_tile, win_window, search_chunk); the other encoders take
-    ``search_chunk`` only, the one setting the JAX build passes them.  The
+    ``search_chunk`` only, the one setting the JAX build passes them.  A
+    ``_CLASSIFIERS`` key gives a ``ClassificationModel``.  The
     head is factored (head_dim 512, premixed) only for a PointNetSegEncoder
     whose decoder is not the deconv, as the JAX build_model factors it
     (train/model_zoo.py:346-353)."""
-    if cfg.model not in _ARCHS and cfg.model not in _ENCODERS:
+    known = {**_ARCHS, **_ENCODERS, **_CLASSIFIERS}
+    if cfg.model not in known:
         raise KeyError(f"unknown model '{cfg.model}'; ported: "
-                       f"{sorted(_ARCHS) + sorted(_ENCODERS)}")
+                       f"{sorted(known)}")
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
     dtype = _DTYPES[cfg.compute_dtype]
     d = cfg.data
-    if cfg.model in _ENCODERS:
+    others = {**_ENCODERS, **_CLASSIFIERS}
+    if cfg.model in others:
         extra = set(encoder_kw) - {"search_chunk"}
         if extra:
             raise TypeError(f"{cfg.model} takes only search_chunk, got "
                             f"{sorted(extra)}")
-        enc = _ENCODERS[cfg.model](d.feat_dim, dtype=dtype, **encoder_kw)
+        enc = others[cfg.model](d.feat_dim, dtype=dtype, **encoder_kw)
     else:
         arch = _ARCHS[cfg.model]()
         enc = PointNetSegEncoder(
             d.feat_dim, arch=arch,
             head_dim=None if arch.decoder == "deconv" else HEAD_DIM,
             dtype=dtype, **encoder_kw)
-    model = SegmentationModel(enc, d.num_classes, d.voxel_sizes, d.caps,
-                              d.block_size, dtype=dtype)
+    pipeline = ClassificationModel if cfg.model in _CLASSIFIERS \
+        else SegmentationModel
+    model = pipeline(enc, d.num_classes, d.voxel_sizes, d.caps,
+                     d.block_size, dtype=dtype)
     if generator is not None:
         init_glorot_(model, generator)
     return model.to(device)
