@@ -112,6 +112,29 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    ``--restore --eval`` gives the test metrics bit for bit; (e) K2 bit for
    bit and K3 under phase 6's rules at stage 0's widest and narrowest
    float32 rows and the widest bf16 row, timed as in phases 3 and 6.
+13. the S3DIS composite models at full width, no depth cut, bf16
+   compute, seeded weights: the four ``template_*`` keys (pointnet,
+   anchor, mlp_anchor and diffusion_anchor convs over three windowed
+   levels) and the refine cascade ``refine_s3dis`` (base ECD net, argmax,
+   class-pure pyramid, refine net; [2, N, C] logits).  (a) Per key one
+   ``Trainer`` step of 4 toy blocks of 8192 points with both kernels'
+   launches as ``composite_gathers`` counts them per block, then 3 more
+   steps timed, a finite loss at every step (train points/s, peak
+   memory); (b) each key's float32 logits on one block agree with the
+   CPU's argmax on at least 0.999 of the valid points (both rows of the
+   cascade; the class-pure segments' agreement printed beside them);
+   (c) one ``refine_s3dis`` step twice from one state is bitwise equal;
+   (d) K2 bit for bit and K3 under phase 6's rules at each row width the
+   five keys gather (3 columns in bf16 and in float32, 16, 32 and 64
+   bf16), timed as in phases 3 and 6; (e) the flagship with
+   ``diffusion_steps=3`` sweeps 8 blocks through ``eval_scene_probs``
+   (finite probabilities, rows sum to 1), and ``radius_neighbors`` on the
+   card and on the CPU agree on at least 0.999 of the valid slots of one
+   float32 block; (f) the train CLI trains ``--model refine_s3dis`` 3
+   steps with its test epoch and ``--restore --eval`` gives its metrics
+   bit for bit, the scene eval labels a prepared room from that
+   checkpoint with the refine row, and the train CLI trains the flagship
+   3 steps with ``--use-diffusion 3``.
 
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
@@ -149,6 +172,11 @@ MODELNET_BATCH = 32         # clouds per classification training step
 MODELNET_PARITY = 8         # clouds in the float32 card-vs-CPU check
 MODELNET_CLI_CLOUDS = 16    # clouds in the CLI's pkl
 MODELNET_CLI_BATCH = 8
+# phase 13: the S3DIS composite models
+COMPOSITE_KEYS = ("template_pointnet", "template_anchor",
+                  "template_mlp_anchor", "template_diffusion_anchor",
+                  "refine_s3dis")
+DIFFUSION_STEPS = 3         # the flagship's --use-diffusion in phase 13
 ECD_TIMED_STEPS = 3         # training steps timed after the counted first
 DSLAB_F32_RTOL = 1e-6       # slab-gradient kernel vs plain, float32
 GRAD_COSINE_MIN = 0.999     # flat gradient, float32 card vs CPU
@@ -1558,6 +1586,75 @@ def gpn_per_block(cfg):
     return gathers_per_block(cfg, gpn_gathers)
 
 
+def template_gathers(model, cfg):
+    """(what, N, K, F, dtype, grad) of every window-gather launch one
+    forward of a ``template_*`` model makes on its windowed levels, in the
+    order they run: per stage the search's xyzm read (K its candidate
+    pool, 4 float32 columns, no gradient), the xyz conv's gather and each
+    ``gc_{i}``'s (K the band's windowed slots).  The xyz conv gathers the
+    level's raw float32 xyz (the anchor convs keep it float32, the
+    pointnet conv casts it to the compute dtype first), which takes no
+    gradient; the diffusion-anchor conv gathers its embedding of it
+    (``fc_embed``, the compute dtype), which does.  Each ``gc_{i}``
+    gathers the compute-dtype output of its embed (the diffusion-anchor
+    conv: of its ``fc_embed``), with a gradient."""
+    import torch
+
+    enc = model.encoder
+    sizes = (cfg.data.num_points,) + tuple(cfg.data.caps)
+    cdt = enc.dtype or torch.float32
+    f32 = torch.float32
+    out = []
+    for s, sp in enumerate(enc.specs):
+        stage = getattr(enc, f"stage{s}")
+        n = sizes[s]
+        out.append(("search", n, min(4 * sp.k, n), 4, f32, False))
+        convs = [("xyz_gc", 3)] + [(f"gc_{i}", d)
+                                   for i, d in enumerate(sp.gc_dims)]
+        for name, width in convs:
+            raw = name == "xyz_gc"
+            if stage.conv == "diffusion_anchor":
+                width = getattr(stage, name).fc_embed.out_features
+                dtype, grad = cdt, True
+            elif stage.conv == "pointnet":
+                dtype, grad = cdt, not raw
+            else:
+                dtype, grad = (f32 if raw else cdt), not raw
+            out.append((f"stage{s}.{name}", n, sp.k, width, dtype, grad))
+    return [g for g in out if g[1] % 256 == 0 and g[1] >= 4 * 256]
+
+
+def refine_gathers(model, cfg):
+    """(what, N, K, F, dtype, grad) of every window-gather launch one
+    forward of ``refine_s3dis`` makes, in order: the base ECD net's on the
+    voxel pyramid (``ecd_gathers``), then the refine net's two ECD stages
+    on the class-pure pyramid: the points, then ``refine_cap`` voxels
+    (each stage's search read and its ``gc_{i}`` gathers, compute dtype,
+    with a gradient: the refine net's weights train)."""
+    import torch
+
+    sizes = (cfg.data.num_points,) + tuple(cfg.data.caps)
+    out = [(g[0], sizes[g[1]]) + g[2:] for g in ecd_gathers(model, cfg)]
+    cdt = model.encoder.dtype or torch.float32
+    rsizes = (cfg.data.num_points, model.refine_cap)
+    for s, stage in enumerate((model.refine.stage0, model.refine.stage1)):
+        sp, n = stage.spec, rsizes[s]
+        if n % 256 or n < 4 * 256:
+            continue
+        out.append(("refine search", n, min(4 * sp.k, n), 4, torch.float32,
+                    False))
+        out.extend((f"refine.stage{s}.gc_{i}", n, sp.k, f, cdt, True)
+                   for i, f in enumerate(sp.gc_dims))
+    return out
+
+
+def composite_gathers(model, cfg):
+    """The gathers of a phase-13 key (``refine_gathers`` or
+    ``template_gathers``)."""
+    fn = refine_gathers if cfg.model == "refine_s3dis" else template_gathers
+    return fn(model, cfg)
+
+
 def phase_ecd(card):
     """11: the ECD and PGNet families and the PointNet++ baseline at full
     width, no depth cut, bf16 compute with f32 params and seeded weights:
@@ -1916,6 +2013,295 @@ def phase_gpn(card):
     return launches, k2_rows, k3_rows, record
 
 
+def f32_parity(cfg, block, card, what):
+    """One block's float32 forward on the card and on the CPU (weights from
+    torch.Generator seed 0) with the argmax agreement over its valid
+    points: both rows of the refine cascade, and its class-pure segments
+    (the refine net's pyramid, caught by a forward pre-hook).  Returns
+    {row name: agreement}."""
+    import dataclasses
+
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    logits, segs = {}, {}
+    for dev in ("cuda", "cpu"):
+        mdl = build_model(f32, torch.Generator().manual_seed(0), dev)
+        if hasattr(mdl, "refine"):
+            mdl.refine.register_forward_pre_hook(
+                lambda m, args, dev=dev: segs.__setitem__(
+                    dev, args[0].seg[0].cpu()))
+        with torch.inference_mode():
+            logits[dev] = mdl(*(torch.from_numpy(block[k]).to(dev)
+                                for k in ("xyz", "feats", "mask"))).cpu()
+        del mdl
+    valid = torch.from_numpy(block["mask"])
+    card_l, cpu_l = logits["cuda"], logits["cpu"]
+    check(bool(torch.isfinite(card_l).all()), f"{what} f32 logits")
+    rows = {"refine": (card_l[0], cpu_l[0]), "base": (card_l[1], cpu_l[1])} \
+        if card_l.dim() == 3 else {"logits": (card_l, cpu_l)}
+    agree = {}
+    for name, (a, b) in rows.items():
+        agree[name] = float((a.argmax(1) == b.argmax(1))[valid].double()
+                            .mean())
+        log(f"[composite] {what} float32 {name} card vs CPU: argmax "
+            f"agreement {agree[name]:.6f} over {int(valid.sum())} valid "
+            f"points (need >= {ECD_ARGMAX_MIN}), max |d| "
+            f"{(a - b).abs().max():.3e} [{card}]")
+    if segs:
+        # the segments are in the sorted order on both sides; a point's
+        # segment is its (voxel, predicted class) pair
+        same = float((segs["cuda"] == segs["cpu"]).double().mean())
+        log(f"[composite] {what} class-pure segments card vs CPU: "
+            f"{same:.6f} of the points in the same segment "
+            f"({int(segs['cuda'].max())} / {int(segs['cpu'].max())} "
+            f"highest ids)")
+        agree["segments"] = same
+    for name in rows:
+        check(agree[name] >= ECD_ARGMAX_MIN,
+              f"{what} {name} argmax agreement {agree[name]}")
+    return agree
+
+
+def phase_composite(card):
+    """13: the S3DIS composite models at full width, no depth cut, bf16
+    compute with f32 params and seeded weights.  (a) Each of
+    ``COMPOSITE_KEYS`` takes one counted Trainer step of TRAIN_BLOCKS toy
+    blocks (launches as ``composite_gathers`` counts them per block), then
+    ECD_TIMED_STEPS timed, each with a finite loss; (b) each key's float32
+    logits on one block against the CPU's argmax (both rows of the
+    cascade); (c) one ``refine_s3dis`` step twice from one state is
+    bitwise equal; (d) K2 and K3 at each row width the five keys gather
+    that no earlier phase held them to; (e) the flagship with
+    ``diffusion_steps=3`` sweeps N_BLOCKS blocks through
+    ``eval_scene_probs``, and ``radius_neighbors`` on the card and on the
+    CPU agree slot for slot; (f) the train CLI trains ``--model
+    refine_s3dis`` with its test epoch, ``--restore --eval`` gives its
+    metrics bit for bit, the scene eval labels a prepared room from that
+    checkpoint, and the train CLI trains the flagship with
+    ``--use-diffusion``.  Returns (launches, K2 rows, K3 rows, records)."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pointcloudsegmentation_tpu_torch import interpolate
+    from pointcloudsegmentation_tpu_torch.config import s3dis_config
+    from pointcloudsegmentation_tpu_torch.data import s3dis, synth_rooms, toy
+    from pointcloudsegmentation_tpu_torch.eval.interpolate import \
+        eval_scene_probs
+    from pointcloudsegmentation_tpu_torch.ops import morton, search
+    from pointcloudsegmentation_tpu_torch.train import cli
+    from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    total = {"window_gather": 0, "window_dslab": 0, "window_dslab_map": 0}
+    records, widths = [], {}
+    batch = next(toy.toy_batches(1, batch_size=TRAIN_BLOCKS,
+                                 num_points=N_POINTS, num_classes=13,
+                                 feat_dim=12))
+    block0 = {k: batch[k][0] for k in ("xyz", "feats", "mask")}
+    for key in COMPOSITE_KEYS:
+        cfg = s3dis_config(model=key)
+        gathers = composite_gathers(build_model(cfg, None, "cpu"), cfg)
+        for what, n, k, f, dtype, _ in gathers:
+            if what.endswith("search"):
+                continue
+            if n > widths.get((f, dtype), (0,))[0]:
+                widths[(f, dtype)] = (n, k, f"{key} {what}")
+        fwd, step = gathers_per_block(cfg, composite_gathers)
+        # (a) training steps at full width
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, device="cuda")
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        log(f"[composite] {key}: {trainer.num_params} params, launches per "
+            f"block {fwd} forward, {step} training step")
+        (state, m), counts, first = run_path(
+            f"{key} train step ({TRAIN_BLOCKS} x {N_POINTS} points)",
+            lambda: trainer.train_step(state, batch),
+            times(step, TRAIN_BLOCKS))
+        total = plus(total, counts)
+        losses = [float(m["loss"])]
+        check(math.isfinite(losses[0]) and int(m["skipped"]) == 0,
+              f"{key} train step loss {losses[0]}")
+
+        def timed():
+            st, out = state, []
+            for _ in range(ECD_TIMED_STEPS):
+                st, mm = trainer.train_step(st, batch)
+                out.append(mm)
+            torch.cuda.synchronize()
+            return st, out
+
+        (state, ms), counts, secs = run_path(
+            f"{key} {ECD_TIMED_STEPS} timed train steps", timed,
+            times(step, TRAIN_BLOCKS * ECD_TIMED_STEPS))
+        total = plus(total, counts)
+        losses += [float(mm["loss"]) for mm in ms]
+        check(all(math.isfinite(x) for x in losses)
+              and not any(int(mm["skipped"]) for mm in ms),
+              f"{key} losses {losses}")
+        pps = int(batch["mask"].sum()) * ECD_TIMED_STEPS / secs
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[composite] {key}: losses {losses}, first step {first:.2f} s "
+            f"(set-up included); {secs / ECD_TIMED_STEPS:.4f} s a step over "
+            f"{ECD_TIMED_STEPS} steps, {pps:.1f} train points/s, peak "
+            f"{peak:.3f} GiB [{card}]")
+        rec = dict(model=key, params=trainer.num_params,
+                   launches_per_block=step, losses=losses, first_step_s=first,
+                   step_s=secs / ECD_TIMED_STEPS, train_points_per_sec=pps,
+                   peak_gib=peak)
+        if key == "refine_s3dis":
+            # (c) one step twice from one state: bitwise equal
+            a, _ = trainer.train_step(state, batch)
+            b, _ = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            for field in ("params", "mu", "nu", "count"):
+                check(torch.equal(getattr(a, field), getattr(b, field)),
+                      f"refine_s3dis: two runs of one step differ in {field}")
+            log("[composite] refine_s3dis: one step twice from one state: "
+                "params, mu, nu and count bitwise equal")
+            del a, b
+        del trainer, state, m, ms
+        torch.cuda.empty_cache()
+        # (b) float32 card vs CPU on the batch's first block
+        rec["argmax_agreement"] = f32_parity(cfg, block0, card, key)
+        records.append(rec)
+
+    # (d) K2 and K3 at each row width the five keys gather (F and dtype),
+    # at the most rows it has
+    cases = [(f"composite {what}", n, k, f, dtype)
+             for (f, dtype), (n, k, what) in sorted(
+                 widths.items(), key=lambda w: (str(w[0][1]), w[0][0]))]
+    log(f"[composite] new gather widths: "
+        f"{[(c[3], str(c[4])) for c in cases]}")
+    k2_rows, k3_rows = kernel_cases(cases, 13, card)
+
+    # (e) the flagship with probability diffusion
+    dcfg = s3dis_config(diffusion_steps=DIFFUSION_STEPS)
+    dmodel = build_model(dcfg, torch.Generator().manual_seed(0),
+                         "cuda").eval()
+    blocks, _ = make_blocks("cuda")
+    fwd, step = per_block(s3dis_config())
+    eval_scene_probs(dmodel, blocks[:1])       # warm-up
+    (sxyz, probs), counts, secs = run_path(
+        f"flagship --use-diffusion {DIFFUSION_STEPS}: {N_BLOCKS} blocks "
+        f"through eval_scene_probs", lambda: eval_scene_probs(dmodel, blocks),
+        times(fwd, N_BLOCKS))
+    total = plus(total, counts)
+    check(probs.shape == (N_BLOCKS * N_POINTS, 13) and np.isfinite(probs)
+          .all(), f"diffusion probs {probs.shape}")
+    dev = float(np.abs(probs.sum(1) - 1.0).max())
+    check(dev <= PROB_SUM_TOL, f"diffusion probs rows sum to 1 +- {dev}")
+    log(f"[composite] diffusion sweep: probs {probs.shape} finite, rows sum "
+        f"to 1 +- {dev:.2e}, alpha {dmodel.diffusion.alpha.item():g}; "
+        f"{secs:.3f} s for {N_BLOCKS} blocks [{card}]")
+    del dmodel
+    nbrs = {}
+    for devname in ("cuda", "cpu"):
+        b = {k: blocks[0][k].to(devname) for k in ("xyz", "mask")}
+        xs, ms, _ = morton.sort_block(b["xyz"], b["mask"],
+                                      dcfg.data.voxel_sizes[0] / 4,
+                                      dcfg.data.block_size)
+        nb = search.radius_neighbors(xs, ms, 0.1, 8, chunk=1024)
+        nbrs[devname] = (nb.idx.cpu(), nb.mask.cpu())
+    (gi, gm), (ci, cm) = nbrs["cuda"], nbrs["cpu"]
+    valid = gm | cm
+    bad = int((valid & ((gm != cm) | (gi != ci))).sum())
+    share = 1.0 - bad / max(int(valid.sum()), 1)
+    log(f"[composite] radius_neighbors (r 0.1, k 8) float32 card vs CPU: "
+        f"{bad} of {int(valid.sum())} valid slots differ ({share:.6f} "
+        f"equal, need >= {PARITY_NBR_MIN})")
+    check(share >= PARITY_NBR_MIN, f"radius_neighbors parity {share}")
+
+    # (f) the entry points
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_composite_")
+    try:
+        cfg = s3dis_config(model="refine_s3dis")
+        fwd, step = gathers_per_block(cfg, composite_gathers)
+        blocks_n = CLI_STEPS * TRAIN_BLOCKS
+        ck = os.path.join(tmp, "ck")
+        base = ["--config", "s3dis", "--model", "refine_s3dis", "--synthetic",
+                "--steps-per-epoch", str(CLI_STEPS), "--batch-size",
+                str(TRAIN_BLOCKS), "--num-points", str(N_POINTS),
+                "--checkpoint-dir", ck]
+        _, counts, _ = run_path(
+            f"train CLI refine_s3dis ({CLI_STEPS} train + {CLI_STEPS} test "
+            f"steps of {TRAIN_BLOCKS} x {N_POINTS} points)",
+            lambda: cli.main(base + ["--epochs", "1", "--metrics-file",
+                                     os.path.join(tmp, "train.jsonl")]),
+            plus(times(step, blocks_n), times(fwd, blocks_n)))
+        total = plus(total, counts)
+        rec, = read_records(os.path.join(tmp, "train.jsonl"))
+        check(set(rec) == METRICS_KEYS, f"metrics record keys {sorted(rec)}")
+        check(math.isfinite(rec["train_loss"]), f"refine CLI loss {rec}")
+        _, counts, _ = run_path(
+            "train CLI refine_s3dis --restore --eval",
+            lambda: cli.main(base + ["--restore", "--eval", "--metrics-file",
+                                     os.path.join(tmp, "eval.jsonl")]),
+            times(fwd, blocks_n))
+        total = plus(total, counts)
+        ev, = read_records(os.path.join(tmp, "eval.jsonl"))
+        for name in ("miou", "oiou", "oacc", "iou", "acc"):
+            check(ev[name] == rec[name], f"refine --restore --eval {name} "
+                  f"{ev[name]} differs from the epoch's {rec[name]}")
+        log(f"[composite] train CLI refine_s3dis: train loss "
+            f"{rec['train_loss']:.5f}, test mIoU {rec['miou']!r}, oAcc "
+            f"{rec['oacc']!r}; --restore --eval gives them bit for bit "
+            f"[{card}]")
+        scenes = os.path.join(tmp, "scenes")
+        points, labels = synth_rooms.synthetic_s3dis_room(
+            np.random.RandomState(0))
+        prep = s3dis.prepare_room(points, labels,
+                                  rng=np.random.RandomState(0))
+        s3dis.save_pkl(os.path.join(scenes, "room0.pkl"), prep)
+        nblk = len(prep["xyzs"])
+        out, counts, secs = run_path(
+            f"scene eval refine_s3dis (a prepared room: {len(points)} "
+            f"points, {nblk} blocks)",
+            lambda: interpolate.main([
+                "--config", "s3dis", "--model", "refine_s3dis",
+                "--checkpoint-dir", ck, "--scene-dir", scenes, "--out-dir",
+                os.path.join(tmp, "out")]),
+            times(fwd, nblk))
+        total = plus(total, counts)
+        r, = out
+        dev = float(np.abs(r["probs"].sum(1) - 1.0).max())
+        check(np.isfinite(r["probs"]).all() and dev <= PROB_SUM_TOL,
+              f"refine scene probs rows sum to 1 +- {dev}")
+        check(0.0 <= r["res"]["miou"] <= 1.0, f"scene mIoU {r['res']}")
+        log(f"[composite] scene eval refine_s3dis: {r['points']} dense "
+            f"points labelled in {r['seconds']:.3f} s, rows sum to 1 +- "
+            f"{dev:.2e}, mIoU {r['res']['miou']:.4f} [{card}]")
+        fwd, step = per_block(s3dis_config())
+        _, counts, _ = run_path(
+            f"train CLI s3dis --use-diffusion {DIFFUSION_STEPS} ({CLI_STEPS} "
+            f"train + {CLI_STEPS} test steps of {TRAIN_BLOCKS} x {N_POINTS} "
+            f"points)",
+            lambda: cli.main([
+                "--config", "s3dis", "--synthetic", "--use-diffusion",
+                str(DIFFUSION_STEPS), "--epochs", "1", "--steps-per-epoch",
+                str(CLI_STEPS), "--batch-size", str(TRAIN_BLOCKS),
+                "--num-points", str(N_POINTS), "--metrics-file",
+                os.path.join(tmp, "diffusion.jsonl")]),
+            plus(times(step, blocks_n), times(fwd, blocks_n)))
+        total = plus(total, counts)
+        drec, = read_records(os.path.join(tmp, "diffusion.jsonl"))
+        check(set(drec) == METRICS_KEYS and math.isfinite(
+            drec["train_loss"]), f"diffusion CLI record {drec}")
+        log(f"[composite] train CLI --use-diffusion {DIFFUSION_STEPS}: train "
+            f"loss {drec['train_loss']:.5f}, test mIoU {drec['miou']:.4f} "
+            f"[{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[composite] records: {json.dumps(records)}")
+    return total, k2_rows, k3_rows, records
+
+
 def main() -> int:
     try:
         import torch
@@ -1970,6 +2356,12 @@ def main() -> int:
     rows += k2_gpn
     drows += k3_gpn
     entry_launches = plus(entry_launches, gpn_launches)
+    t13 = time.perf_counter()
+    composite_launches, k2_comp, k3_comp, _ = phase_composite(card)
+    log(f"[composite] phase 13 in {time.perf_counter() - t13:.1f} s")
+    rows += k2_comp
+    drows += k3_comp
+    entry_launches = plus(entry_launches, composite_launches)
 
     main_row = next(r for r in rows if r["name"].endswith("conv"))
     dmain, fmain = drows[0], frows[0]
@@ -1981,7 +2373,7 @@ def main() -> int:
         f"alone in its own row) and {fmain['name']} "
         f"{fmain['dtype']} (fused conv); launches are the serve sweep's plus "
         f"one training step's, the entry points', the PointNet family's, "
-        f"the ECD family's and the GPN family's, "
+        f"the ECD family's, the GPN family's and the composite models', "
         f"and the fused-conv bench's; eval {pps:.1f} "
         f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "
         f"GiB")

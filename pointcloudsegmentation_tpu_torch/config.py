@@ -40,6 +40,7 @@ class TrainConfig:
     optim: OptimConfig = field(default_factory=OptimConfig)
     batch_per_device: int = 1      # reference default --batch_size 1/GPU
     compute_dtype: str = "bfloat16"  # "float32" | "bfloat16" (params f32)
+    diffusion_steps: int = 0       # graph_probs_diffusion (--use-diffusion)
     num_epochs: int = 100
     seed: int = 0                  # dropout streams derive from (seed, step)
     log_every: int = 120           # reference --log_step

@@ -6,8 +6,9 @@ one: ``params/encoder/feats0/fc_0_nbr/kernel`` becomes
 ``encoder.feats0.fc_0_nbr.weight``.  Flax ``Dense`` kernels are [in, out];
 torch ``Linear`` weights are [out, in], so kernels are transposed.  The
 other leaves, biases, ``MaskedBatchNorm``'s ``scale``, the ECD convs'
-``edge_weights_trans`` and the GPN convs' ``pw``, keep their names and
-flax shapes.
+``edge_weights_trans``, the GPN convs' ``pw``, ``ProbsDiffusion``'s
+``alpha`` and the template's trainable anchors (``{conv}_anchor``), keep
+their names and flax shapes.
 
 The trainer keeps every parameter in one flat float32 vector laid out as
 ``jax.flatten_util.ravel_pytree`` lays out the flax tree (``ravel_layout``):
@@ -27,6 +28,12 @@ _LEAF = {"kernel": "weight", "bias": "bias", "scale": "scale",
 _FLAX_LEAF = {v: k for k, v in _LEAF.items()}
 
 
+def _kept(name: str) -> bool:
+    """Leaves whose flax and torch names are their own: ``ProbsDiffusion``'s
+    ``alpha`` and the template's trainable anchors (``{conv}_anchor``)."""
+    return name == "alpha" or name.endswith("_anchor")
+
+
 def _flatten(tree: Mapping, prefix=()):
     for name, sub in tree.items():
         path = prefix + (str(name),)
@@ -44,10 +51,11 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """Nested mapping of numpy arrays (with or without the top-level
     ``params`` collection) -> {torch key: float32 tensor}.  Raises on a leaf
     that is not a Dense kernel or bias, a batch-norm scale, an
-    ``edge_weights_trans`` or a ``pw``."""
+    ``edge_weights_trans``, a ``pw``, an ``alpha`` or an ``*_anchor``."""
     out = {}
     for path, leaf in _flatten(_params_tree(params)):
-        if path[-1] not in _LEAF:
+        name = _LEAF.get(path[-1]) or (path[-1] if _kept(path[-1]) else None)
+        if name is None:
             raise KeyError(f"unmapped flax leaf {'/'.join(path)}")
         arr = np.asarray(leaf, np.float32)
         if path[-1] == "kernel":
@@ -55,7 +63,7 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"{'/'.join(path)}: kernel of shape "
                                  f"{arr.shape} is not a Dense kernel")
             arr = arr.T
-        key = ".".join(path[:-1] + (_LEAF[path[-1]],))
+        key = ".".join(path[:-1] + (name,))
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
 
@@ -93,10 +101,11 @@ def ravel_layout(model: nn.Module) -> List[Leaf]:
     entries = []
     for key, p in model.named_parameters():
         *mods, name = key.split(".")
-        if name not in _FLAX_LEAF or (name == "weight" and p.dim() != 2):
+        flax_name = _FLAX_LEAF.get(name) or (name if _kept(name) else None)
+        if flax_name is None or (name == "weight" and p.dim() != 2):
             raise KeyError(f"parameter {key} has no flax counterpart")
         shape = tuple(p.shape[::-1]) if name == "weight" else tuple(p.shape)
-        entries.append((tuple(mods) + (_FLAX_LEAF[name],), key, shape))
+        entries.append((tuple(mods) + (flax_name,), key, shape))
     layout, offset = [], 0
     for path, key, shape in sorted(entries):
         leaf = Leaf(key, path, shape, offset)

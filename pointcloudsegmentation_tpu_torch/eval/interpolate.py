@@ -23,7 +23,9 @@ def eval_scene_probs(model: nn.Module, blocks: Iterable[Dict]
 
     blocks: dicts with xyz [N, 3], feats [N, F], mask [N] (numpy arrays or
     tensors) and optionally block_min [3].  ``model(xyz, feats, mask)``
-    returns logits [N, C]; softmax runs in float32.  The sweep is issued
+    returns logits [N, C], or [2, N, C] for the refine cascade, whose
+    refine row is used (JAX ``eval/interpolate.py:47-49``); softmax runs
+    in float32.  The sweep is issued
     without host synchronisation; probabilities come back in one transfer
     at the end."""
     dev = next(model.parameters()).device
@@ -33,6 +35,8 @@ def eval_scene_probs(model: nn.Module, blocks: Iterable[Dict]
         logits = model(torch.as_tensor(b["xyz"], device=dev),
                        torch.as_tensor(b["feats"], device=dev),
                        torch.as_tensor(b["mask"], device=dev))
+        if logits.dim() == 3:
+            logits = logits[0]
         dev_probs.append(torch.softmax(logits.float(), dim=-1))
     all_xyz, all_probs = [], []
     for b, p in zip(blocks, dev_probs):

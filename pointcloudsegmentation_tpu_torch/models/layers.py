@@ -296,6 +296,27 @@ class GPNConv(nn.Module):
             lw_sum
 
 
+class ProbsDiffusion(nn.Module):
+    """Iterative label smoothing (``graph_probs_diffusion``; JAX
+    ``models/layers.py:400-414``): ``steps`` times, each point's
+    probabilities mix with the mean over its valid neighbors with weight
+    ``sigmoid(alpha)``.  ``alpha`` [1] starts at 0 (a weight of 0.5) and no
+    Glorot draw touches it."""
+
+    def __init__(self, steps: int):
+        super().__init__()
+        self.steps = steps
+        self.alpha = nn.Parameter(torch.zeros(1))
+
+    def forward(self, probs: torch.Tensor, nbr) -> torch.Tensor:
+        """probs [N, C] float32, nbr a Neighborhood -> [N, C]."""
+        alpha = torch.sigmoid(self.alpha)
+        for _ in range(self.steps):
+            neigh = nb.masked_mean(nb.gather_neighbors(probs, nbr), nbr)
+            probs = (1.0 - alpha) * probs + alpha * neigh
+        return probs
+
+
 class SegClassifier(nn.Module):
     """Segmentation head (``classifier_v3``): Dense(512) -> relu ->
     concat(local) -> dropout -> Dense(256) -> relu -> concat -> dropout ->

@@ -1,8 +1,7 @@
 """The conv variants of the reference zoo (mirror of
 ``pointcloudsegmentation_tpu.models.variants``): ``ECDFeatsV4`` (pgnet_v7's
 conv), ``MaskedBatchNorm``, ``ECDXyzV2`` and ``ECDFeatsV2`` (pgnet_v6's),
-and ``DiffusionAnchorConv`` v1-v3 (on no registry key's path yet: the
-template models give it one).
+and ``DiffusionAnchorConv`` v1-v3 (v2 runs in ``template_diffusion_anchor``).
 
 Submodule and parameter names are the flax ones, so ``convert.py`` maps
 the trees one to one; the non-Dense leaves (``edge_weights_trans``, the

@@ -33,6 +33,23 @@ def build_pyramid(xyz: torch.Tensor, mask: torch.Tensor,
                    morton_sorted=morton_sorted)
 
 
+def build_class_pyramid(xyz: torch.Tensor, mask: torch.Tensor,
+                        labels: torch.Tensor, voxel_size: float, cap: int,
+                        block_size: float = 3.0,
+                        morton_sorted: bool = False) -> Pyramid:
+    """Two levels whose voxels are class-pure (JAX ``ops/hierarchy.py:
+    80-103``, the refine cascade's hierarchy): the points, then the centers
+    of their (voxel, label) segments.  Points stay in place."""
+    info = vox.voxelize_with_labels(xyz, mask, labels, voxel_size,
+                                    block_size, cap)
+    dxyz = vox.diff_to_center(xyz, info.centers, info.seg)
+    dxyz = torch.where(mask[:, None], dxyz, torch.zeros_like(dxyz))
+    return Pyramid(levels=(Level(xyz=xyz, mask=mask),
+                           Level(xyz=info.centers, mask=info.mask)),
+                   seg=(info.seg,), dxyz=(dxyz,),
+                   morton_sorted=morton_sorted)
+
+
 def pool_max(feats: torch.Tensor, pyramid: Pyramid,
              level: int) -> torch.Tensor:
     """Voxel max-pool level -> level+1."""

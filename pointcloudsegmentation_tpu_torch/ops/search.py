@@ -158,6 +158,40 @@ def _dist_chunks(xyz: torch.Tensor, sq: torch.Tensor, chunk: int):
         yield slice(beg, beg + chunk), d2
 
 
+def radius_neighbors(xyz: torch.Tensor, mask: torch.Tensor, radius: float,
+                     k: int, min_radius: float = 0.0,
+                     chunk: int = 1024) -> Neighborhood:
+    """The k nearest valid points within (min_radius, radius] of each
+    point (JAX ``ops/search.py:215-269``): per query chunk the [chunk, N]
+    selection scores, candidates within the band widened by a slack of
+    ``1e-4 * max(radius^2, 1)``, the k smallest (ties to the lower index),
+    then the exact ``|x - q|^2`` re-filter of those k.  An annulus
+    (``min_radius > 0``) excludes the self pair.  Invalid slots hold the
+    point's own index."""
+    n = xyz.shape[0]
+    dev = xyz.device
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa
+    sq_max, sq_min = f32(radius * radius), f32(min_radius * min_radius)
+    slack = f32(1e-4) * torch.maximum(sq_max, f32(1.0))
+    sq = sqnorm3(xyz)
+    row = torch.arange(n, device=dev)
+    idx = torch.empty((n, k), dtype=torch.long, device=dev)
+    valid = torch.empty((n, k), dtype=torch.bool, device=dev)
+    for rows, d2 in _dist_chunks(xyz, sq, min(chunk, n)):
+        d2 = d2.clamp(min=0.0)
+        cand = (d2 <= sq_max + slack) & (d2 >= sq_min - slack) & mask[None, :]
+        if min_radius > 0.0:
+            cand &= row[rows, None] != row[None, :]
+        top, ti = _topk_smallest(
+            torch.where(cand, d2, torch.full_like(d2, _INF)), k)
+        exact = sqnorm3(xyz[ti] - xyz[rows, None, :])
+        ok = (top < _INF * 0.5) & (exact <= sq_max) & (exact >= sq_min)
+        idx[rows], valid[rows] = ti, ok
+    valid &= mask[:, None]
+    idx = torch.where(valid, idx, row[:, None])
+    return Neighborhood(idx=idx.to(torch.int32), mask=valid)
+
+
 def multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor, bands,
                          cand_k: int = 64, chunk: int = 1024,
                          return_sxyz: bool = False):

@@ -4,7 +4,7 @@ gets a voxel slot id, and voxels beyond ``v_max`` (and invalid points) map
 to the overflow slot ``v_max``."""
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,11 +41,19 @@ def pack_keys(coords: torch.Tensor, grid: int) -> torch.Tensor:
     return morton_code(coords)
 
 
-def compute_segments(key: torch.Tensor, mask: torch.Tensor,
-                     v_max: int) -> torch.Tensor:
+def compute_segments(key: torch.Tensor, mask: torch.Tensor, v_max: int,
+                     key2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense voxel slot per point via stable sort + unique-rank scan;
-    invalid points and voxels past ``v_max`` map to ``v_max``."""
-    key = torch.where(mask, key, torch.full_like(key, _INT32_MAX))
+    invalid points and voxels past ``v_max`` map to ``v_max``.  With
+    ``key2`` (e.g. class labels) a segment is one distinct (key, key2)
+    pair, ``key`` primary: the JAX ``lexsort((key2, key))`` as one stable
+    sort of the int64 ``key * 2^32 + (key2 + 2^31)``, which orders the
+    pairs the same way, so the segments stay in voxel-key order."""
+    key = torch.where(mask, key, torch.full_like(key, _INT32_MAX)).long()
+    if key2 is not None:
+        key2 = torch.where(mask, key2.to(torch.int32),
+                           torch.zeros_like(key2, dtype=torch.int32))
+        key = key * (1 << 32) + (key2.long() + (1 << 31))
     order = torch.sort(key, stable=True).indices
     skey = key[order]
     is_new = torch.ones_like(skey, dtype=torch.bool)
@@ -58,17 +66,33 @@ def compute_segments(key: torch.Tensor, mask: torch.Tensor,
     return seg
 
 
-def voxelize(xyz: torch.Tensor, mask: torch.Tensor, voxel_size: float,
-             block_size: float, v_max: int) -> VoxelInfo:
-    """coords -> keys -> segments -> centers (mean xyz per voxel)."""
-    coords, grid = voxel_coords(xyz, voxel_size, block_size, mask)
-    seg = compute_segments(pack_keys(coords, grid), mask, v_max)
+def _voxel_info(xyz: torch.Tensor, mask: torch.Tensor, seg: torch.Tensor,
+                v_max: int) -> VoxelInfo:
     counts = seg_ops.segment_count(seg, v_max)
     centers = seg_ops.segment_sum(xyz * mask[:, None].to(xyz.dtype), seg,
                                   v_max)
     centers = centers / counts[:, None].clamp(min=1.0)
     return VoxelInfo(seg=seg, centers=centers, counts=counts,
                      mask=counts > 0)
+
+
+def voxelize(xyz: torch.Tensor, mask: torch.Tensor, voxel_size: float,
+             block_size: float, v_max: int) -> VoxelInfo:
+    """coords -> keys -> segments -> centers (mean xyz per voxel)."""
+    coords, grid = voxel_coords(xyz, voxel_size, block_size, mask)
+    seg = compute_segments(pack_keys(coords, grid), mask, v_max)
+    return _voxel_info(xyz, mask, seg, v_max)
+
+
+def voxelize_with_labels(xyz: torch.Tensor, mask: torch.Tensor,
+                         labels: torch.Tensor, voxel_size: float,
+                         block_size: float, v_max: int) -> VoxelInfo:
+    """Class-pure voxelization (JAX ``ops/voxelize.py:183-203``): points of
+    different labels never share a voxel; the segments come in voxel-key
+    order, labels ascending within a voxel."""
+    coords, grid = voxel_coords(xyz, voxel_size, block_size, mask)
+    seg = compute_segments(pack_keys(coords, grid), mask, v_max, key2=labels)
+    return _voxel_info(xyz, mask, seg, v_max)
 
 
 def diff_to_center(xyz: torch.Tensor, centers: torch.Tensor,

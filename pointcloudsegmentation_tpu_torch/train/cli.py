@@ -13,11 +13,14 @@ Examples:
       --data-dir data/ModelNet40/train   # pkls of (xyz, label) pairs
 
 ``--config modelnet40`` trains the ``gpn_modelnet40`` classifier: one
-label per cloud, and the metrics count clouds.  It runs on the card
+label per cloud, and the metrics count clouds.  ``--model refine_s3dis``
+trains the refine cascade (loss refine + base, metrics of the refine
+row); ``--use-diffusion STEPS`` smooths a segmentation model's output
+probabilities over each point's neighbors.  It runs on the card
 (``--device cuda``) unless ``--device cpu`` is given, and raises where
 there is no card.  The JAX CLI's ``dense_semantic3d`` and
-``context_semantic3d`` readers, ``--use-diffusion`` and the device mesh
-(``--no-mesh``) are not ported yet (ROADMAP.md).
+``context_semantic3d`` readers and the device mesh (``--no-mesh``) are
+not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -66,6 +69,9 @@ def parse_args(argv=None):
                         "--log-file / --checkpoint-dir)")
     p.add_argument("--eval", action="store_true",
                    help="evaluate only (restore + test epoch)")
+    p.add_argument("--use-diffusion", type=int, default=0, metavar="STEPS",
+                   help="probs-diffusion smoothing steps "
+                        "(train_graph_pool.py --use_diffusion)")
     p.add_argument("--ablate-feats", choices=["none", "zero", "drop-rgb",
                                               "drop-covars"], default="none",
                    help="feature-ablation retraining (the reference's "
@@ -89,6 +95,8 @@ def build_cfg(args) -> config_lib.TrainConfig:
         over["optim_epoch_steps"] = args.steps_per_epoch
     if args.checkpoint_dir:
         over["checkpoint_dir"] = args.checkpoint_dir
+    if args.use_diffusion:
+        over["diffusion_steps"] = args.use_diffusion
     return CONFIGS[args.config](**over)
 
 

@@ -8,10 +8,14 @@ Every parameter lives in one flat float32 vector in the JAX trainer's
 ``ravel_pytree`` order (``convert.ravel_layout``); the model's parameters
 are views into it and their ``.grad``s views into a flat gradient buffer,
 so backward accumulates straight into the flat gradient and Adam runs on
-one vector.  A block's logits are per point [N, C] (segmentation) or one
-row [C] per cloud (classification, as the JAX trainer's branch at
+one vector.  A block's logits are per point [N, C] (segmentation), two
+rows [2, N, C] (the refine cascade: refine, base) or one row [C] per
+cloud (classification, as the JAX trainer's branch at
 ``train/loop.py:437-442``: the cloud's label is its first point's, and it
-counts where any of its points is valid).
+counts where any of its points is valid).  The cascade's loss is the
+refine row's plus ``BASE_LOSS_WEIGHT`` times the base row's (JAX
+``train/loop.py:443-455``); both rows share the labels and the mask, so
+the weights are counted once, and the metrics come from the refine row.
 """
 from __future__ import annotations
 
@@ -34,6 +38,9 @@ log = logging.getLogger(__name__)
 
 # optax.adam defaults
 B1, B2, EPS = 0.9, 0.999, 1e-8
+# the refine cascade's base-row weight: the JAX trainer reads
+# getattr(cfg, "base_loss_weight", 1.0) and its config has no such field
+BASE_LOSS_WEIGHT = 1.0
 
 
 @dataclass(frozen=True)
@@ -253,9 +260,16 @@ class Trainer:
                     # none and counts nothing)
                     logits, labels, mask = (logits[None], labels[:1],
                                             mask.any()[None])
+                base = None
+                if logits.dim() == 3:
+                    logits, base = logits[0], logits[1]
                 s, w, labels_eff, valid = seg_loss_terms(
                     logits, labels, mask, self.class_weights,
                     d.ignore_label)
+                if base is not None:
+                    s = s + BASE_LOSS_WEIGHT * seg_loss_terms(
+                        base, labels, mask, self.class_weights,
+                        d.ignore_label)[0]
                 if grad:
                     s.backward()
                 s_acc += s.detach()
@@ -265,7 +279,7 @@ class Trainer:
                 cm += bcm
                 correct += bcorrect
                 count += bcount
-                del logits, s
+                del logits, base, s
         return s_acc, w_acc, cm, correct, count
 
     def loss_and_grad(self, state: TrainState, batch: Dict,

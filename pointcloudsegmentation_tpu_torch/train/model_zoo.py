@@ -1,8 +1,10 @@
 """Model registry: config key -> end-to-end module (Morton sort + pyramid +
 encoder + head), mirroring ``pointcloudsegmentation_tpu.train.model_zoo``
 for its ``PointNetSegEncoder`` keys (``_ARCHS``), ``tiny_s3dis``, the ECD,
-PGNet and GPN segmentation nets and the PointNet++ baseline
-(``_ENCODERS``), and the ModelNet40 classifier ``gpn_modelnet40``
+PGNet and GPN segmentation nets, the PointNet++ baseline and the four
+``template_*`` harness keys (``_ENCODERS``), the refine cascade
+``refine_s3dis`` (``RefineCascadeModel``: [2, N, C] logits, refine row
+first), and the ModelNet40 classifier ``gpn_modelnet40``
 (``_CLASSIFIERS``: unsorted pyramid + encoder + ``ClassifierHead`` -> one
 row of logits per cloud)."""
 from __future__ import annotations
@@ -14,8 +16,8 @@ import torch
 from torch import nn
 
 from ..config import TrainConfig
-from ..models import ecd, gpn
-from ..models.layers import SegClassifier, init_glorot_
+from ..models import ecd, gpn, template
+from ..models.layers import ProbsDiffusion, SegClassifier, init_glorot_
 from ..models.pointnet import (HEAD_DIM, S3DIS_ARCH,
                                S3DIS_BASELINE20_ARCH,
                                S3DIS_CONCAT10_DECONV_ARCH, S3DIS_EMBED_ARCH,
@@ -24,9 +26,13 @@ from ..models.pointnet import (HEAD_DIM, S3DIS_ARCH,
                                PointNet2Baseline, PointNetSegEncoder,
                                StageSpec)
 from ..ops import hierarchy as hier
-from ..ops import morton
+from ..ops import morton, search
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+# the diffusion path's neighborhood (JAX train/model_zoo.py:64-65) and the
+# cascade's class-pure voxel (JAX :95)
+DIFFUSION_RADIUS, DIFFUSION_K = 0.1, 8
+REFINE_VOXEL = 0.75
 
 
 class ClassificationModel(nn.Module):
@@ -63,11 +69,19 @@ class SegmentationModel(nn.Module):
     head_dim columns, else with ``class_mlp1`` on the wide decoder
     output.  Any encoder with ``out_width``, ``stage0_width`` and
     ``head_dim`` (None: unfactored) that maps (pyramid, feats) to (head
-    input, stage-0 feats) will do."""
+    input, stage-0 feats) will do.
+
+    ``diffusion_steps > 0`` (the JAX ``--use_diffusion`` path,
+    ``train/model_zoo.py:63-69``) smooths the float32 softmax over each
+    point's ``DIFFUSION_K`` nearest neighbors within ``DIFFUSION_RADIUS``
+    (``search.radius_neighbors`` on the sorted points, before the inverse
+    permutation) with ``ProbsDiffusion`` and returns
+    ``log(max(probs, 1e-12))``."""
 
     def __init__(self, encoder: nn.Module, num_classes: int,
                  voxel_sizes: Tuple[float, ...], caps: Tuple[int, ...],
-                 block_size: float, dtype: Optional[torch.dtype] = None):
+                 block_size: float, dtype: Optional[torch.dtype] = None,
+                 diffusion_steps: int = 0):
         super().__init__()
         self.encoder = encoder
         self.head = SegClassifier(num_classes, encoder.out_width,
@@ -77,6 +91,8 @@ class SegmentationModel(nn.Module):
         self.voxel_sizes = tuple(voxel_sizes)
         self.caps = tuple(caps)
         self.block_size = block_size
+        if diffusion_steps > 0:
+            self.diffusion = ProbsDiffusion(diffusion_steps)
 
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor,
                 mask: torch.Tensor, train: bool = False,
@@ -89,7 +105,68 @@ class SegmentationModel(nn.Module):
                                  self.block_size, morton_sorted=True)
         gf, lf = self.encoder(pyr, feats)
         logits = self.head(gf, lf, train, generator)
+        if hasattr(self, "diffusion"):
+            n = xyz.shape[0]
+            nbr = search.radius_neighbors(xyz, mask, DIFFUSION_RADIUS,
+                                          DIFFUSION_K, chunk=min(1024, n))
+            probs = self.diffusion(torch.softmax(logits.float(), dim=-1),
+                                   nbr)
+            logits = torch.log(probs.clamp(min=1e-12))
         return logits[morton.inverse_permutation(order)]
+
+
+class RefineCascadeModel(nn.Module):
+    """The two-model refine cascade (JAX ``train/model_zoo.py:76-142``):
+    the base encoder and its unfactored head give the base logits; their
+    argmax (no gradient) builds a class-pure pyramid of ``REFINE_VOXEL``
+    voxels capped at the last cap (``hier.build_class_pyramid``);
+    ``SemanticPoolRefine`` runs on it from the base global features,
+    detached, so the base encoder takes no gradient through the refine
+    net's input; ``refine_head`` classifies [refine global ‖ base global]
+    with the [base local ‖ refine local] skip.  Returns [2, N, C] (refine,
+    base) in the caller's point order."""
+
+    def __init__(self, encoder: nn.Module, num_classes: int,
+                 voxel_sizes: Tuple[float, ...], caps: Tuple[int, ...],
+                 block_size: float, dtype: Optional[torch.dtype] = None,
+                 search_chunk: int = 1024):
+        super().__init__()
+        self.encoder = encoder
+        self.head = SegClassifier(num_classes, encoder.out_width,
+                                  encoder.stage0_width, premixed=False,
+                                  dtype=dtype)
+        self.refine = template.SemanticPoolRefine(
+            encoder.out_width, search_chunk=search_chunk, dtype=dtype)
+        self.refine_head = SegClassifier(
+            num_classes, self.refine.global_width + encoder.out_width,
+            encoder.stage0_width + self.refine.local_width, premixed=False,
+            dtype=dtype)
+        self.voxel_sizes = tuple(voxel_sizes)
+        self.caps = tuple(caps)
+        self.block_size = block_size
+        self.refine_cap = self.caps[-1]
+
+    def forward(self, xyz: torch.Tensor, feats: torch.Tensor,
+                mask: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """xyz [N, 3], feats [N, F], mask [N] -> logits [2, N, C]."""
+        cell = self.voxel_sizes[0] / 4.0
+        xyz, mask, order, feats = morton.sort_block(
+            xyz, mask, cell, self.block_size, feats)
+        pyr = hier.build_pyramid(xyz, mask, self.voxel_sizes, self.caps,
+                                 self.block_size, morton_sorted=True)
+        gf, lf = self.encoder(pyr, feats)
+        base = self.head(gf, lf, train, generator)
+        preds = base.detach().argmax(-1).to(torch.int32)
+        cpyr = hier.build_class_pyramid(xyz, mask, preds, REFINE_VOXEL,
+                                        self.refine_cap, self.block_size,
+                                        morton_sorted=True)
+        rgf, rlf = self.refine(cpyr, gf.detach())
+        refined = self.refine_head(torch.cat([rgf, gf], dim=-1),
+                                   torch.cat([lf, rlf], dim=-1), train,
+                                   generator)
+        out = torch.stack([refined, base])
+        return out[:, morton.inverse_permutation(order)]
 
 
 def tiny_arch() -> Arch:
@@ -128,7 +205,14 @@ _ENCODERS = {
     "pgnet_v7": ecd.PGNetV7,
     "pgnet_v8": ecd.PGNetHybrid,
     "gpn_seg": gpn.GPNSegModel,
+    **{f"template_{conv}": partial(template.TemplateSegModel, conv=conv)
+       for conv in template.CONVS},
 }
+
+# the refine cascade (JAX train/model_zoo.py:359-364): its base encoder,
+# the 2-stage ECD net, called as the _ENCODERS are
+_CASCADES = {"refine_s3dis": partial(ecd.ECDSegModel,
+                                     specs=ecd.S3DIS_ECD_SPEC[:2])}
 
 # the classification keys (JAX train/model_zoo.py:365-367), encoders called
 # as the _ENCODERS are
@@ -140,15 +224,20 @@ def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
     """Build ``cfg.model`` with ``cfg.compute_dtype`` compute.  Weights are
     Glorot-uniform draws from ``generator`` (on the CPU, so every device
     gets the same weights) or zeros without one, e.g. before loading a
-    converted state_dict.  The model lives on ``device``: the card unless
-    the caller asks for the CPU.  ``encoder_kw`` override PointNetSegEncoder
-    settings (win_tile, win_window, search_chunk); the other encoders take
-    ``search_chunk`` only, the one setting the JAX build passes them.  A
-    ``_CLASSIFIERS`` key gives a ``ClassificationModel``.  The
-    head is factored (head_dim 512, premixed) only for a PointNetSegEncoder
-    whose decoder is not the deconv, as the JAX build_model factors it
-    (train/model_zoo.py:346-353)."""
-    known = {**_ARCHS, **_ENCODERS, **_CLASSIFIERS}
+    converted state_dict; the template's trainable anchors start at the
+    sphere k-means and ``ProbsDiffusion``'s ``alpha`` at 0 either way.
+    The model lives on ``device``: the card unless the caller asks for the
+    CPU.  ``encoder_kw`` override PointNetSegEncoder settings (win_tile,
+    win_window, search_chunk); the other encoders take ``search_chunk``
+    only, the one setting the JAX build passes them.  A ``_CLASSIFIERS``
+    key gives a ``ClassificationModel``, ``refine_s3dis`` a
+    ``RefineCascadeModel``, any other a ``SegmentationModel`` with
+    ``cfg.diffusion_steps``.  The head is factored (head_dim 512,
+    premixed) only for a PointNetSegEncoder whose decoder is not the
+    deconv, as the JAX build_model factors it (train/model_zoo.py:
+    346-353)."""
+    others = {**_ENCODERS, **_CASCADES, **_CLASSIFIERS}
+    known = {**_ARCHS, **others}
     if cfg.model not in known:
         raise KeyError(f"unknown model '{cfg.model}'; ported: "
                        f"{sorted(known)}")
@@ -156,7 +245,6 @@ def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
         raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
     dtype = _DTYPES[cfg.compute_dtype]
     d = cfg.data
-    others = {**_ENCODERS, **_CLASSIFIERS}
     if cfg.model in others:
         extra = set(encoder_kw) - {"search_chunk"}
         if extra:
@@ -169,10 +257,14 @@ def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
             d.feat_dim, arch=arch,
             head_dim=None if arch.decoder == "deconv" else HEAD_DIM,
             dtype=dtype, **encoder_kw)
-    pipeline = ClassificationModel if cfg.model in _CLASSIFIERS \
-        else SegmentationModel
-    model = pipeline(enc, d.num_classes, d.voxel_sizes, d.caps,
-                     d.block_size, dtype=dtype)
+    common = (enc, d.num_classes, d.voxel_sizes, d.caps, d.block_size)
+    if cfg.model in _CLASSIFIERS:
+        model = ClassificationModel(*common, dtype=dtype)
+    elif cfg.model in _CASCADES:
+        model = RefineCascadeModel(*common, dtype=dtype, **encoder_kw)
+    else:
+        model = SegmentationModel(*common, dtype=dtype,
+                                  diffusion_steps=cfg.diffusion_steps)
     if generator is not None:
         init_glorot_(model, generator)
     return model.to(device)

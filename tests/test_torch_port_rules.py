@@ -57,7 +57,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "data.io_util", "data.s3dis", "data.scannet",
                  "data.semantic3d", "data.synth_rooms", "data.provider",
                  "utils.logging", "models.ecd", "models.variants",
-                 "models.gpn", "ops.anchors", "data.modelnet"):
+                 "models.gpn", "ops.anchors", "data.modelnet",
+                 "models.template"):
         assert f"'pointcloudsegmentation_tpu_torch.{name}'" in walked, name
 
 
