@@ -135,6 +135,33 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    bit for bit, the scene eval labels a prepared room from that
    checkpoint with the refine row, and the train CLI trains the flagship
    3 steps with ``--use-diffusion 3``.
+14. the Semantic3D dense and context models at full width, no depth cut,
+   bf16 compute, seeded weights, under ``semantic3d_config`` (10,240
+   sampled points a block, caps 5120/1280): ``dense_semantic3d``
+   (``DenseFeats`` on a dense cloud of 40,960 points, then the
+   unfactored ``SEMANTIC3D_DILATE_ARCH`` encoder with per-point overflow
+   slots) and ``context_semantic3d`` (the S3DIS ECD net on the block, and
+   ``ContextNet`` on a context cloud of up to 512 points), on blocks of
+   the seeded outdoor scan read and padded by the ``Provider`` (the dense
+   read of ``semantic3d.save_blocks`` blocks; ``prepare_context_scene``
+   blocks of the 120 m scene around the scan, the largest context clouds
+   first: those above the cap of 512 are cut by ``pad_context``).
+   (a) Each key's float32 logits on one block on the card and on the CPU
+   agree on at least 0.999 of the valid points' argmax, and for the
+   dense model at least 0.999 of the ``knn_in_support`` slots;
+   (b) 8 ``Trainer`` steps of 4 blocks on one batch: both kernels'
+   launches per block as ``dense_gathers`` / ``context_gathers`` count
+   them (``ContextNet`` launches none: alone on the card it counts 0), a
+   finite loss at every step that falls, one step twice from one state
+   bitwise equal, the non-finite guard, train points/s and peak memory;
+   (c) the train CLI trains each key 3 steps with its test epoch from
+   ``--data-dir`` pkls (``semantic3d.save_blocks`` for the dense model,
+   ``prepare_context_scene`` for the context model), and ``--restore
+   --eval`` gives its test metrics bit for bit; (d) ``eval_scene_probs``
+   with the key's ``extra_keys`` sweeps 4 blocks: finite probabilities
+   whose rows sum to 1; (e) K2 bit for bit and K3 under phase 6's rules at
+   each gather shape of the two models (the conv gathers at 10,240, 5120
+   and 1280 rows), timed as in phases 3 and 6.
 
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
@@ -177,6 +204,12 @@ COMPOSITE_KEYS = ("template_pointnet", "template_anchor",
                   "template_mlp_anchor", "template_diffusion_anchor",
                   "refine_s3dis")
 DIFFUSION_STEPS = 3         # the flagship's --use-diffusion in phase 13
+# phase 14: the Semantic3D dense and context models (semantic3d_config)
+S3D_PIPELINE_KEYS = ("dense_semantic3d", "context_semantic3d")
+# training steps on one batch, the loss falling from the first to the last:
+# from Glorot weights at lr 1e-3 Adam's early steps overshoot on one batch
+# (each key's loss rises at one of its first 4 steps), so 8 let the trend show
+S3D_PIPELINE_STEPS = 8
 ECD_TIMED_STEPS = 3         # training steps timed after the counted first
 DSLAB_F32_RTOL = 1e-6       # slab-gradient kernel vs plain, float32
 GRAD_COSINE_MIN = 0.999     # flat gradient, float32 card vs CPU
@@ -1239,82 +1272,6 @@ def phase_entry_points(card):
     return total
 
 
-def outdoor_scan(seed):
-    """A seeded synthetic outdoor scan in Semantic3D's raw layout: [n, 7]
-    float32 x y z intensity r g b over 22 x 27 m at about 5 cm spacing,
-    and int32 labels 0..8: rolling ground (1 man-made terrain on a road
-    strip, 2 natural terrain elsewhere), low vegetation (4), two building
-    facades (5), trees (3: trunk and crown), a low wall (6), cars (8), and
-    2% of the points unlabeled (0) or speckle artefacts (7)."""
-    import numpy as np
-
-    rng = np.random.RandomState(seed)
-    wx, wy = 22.0, 27.0
-    parts, labels = [], []
-
-    def ground(x, y):
-        return 0.3 * np.sin(x / 7.0) + 0.2 * np.cos(y / 5.0)
-
-    def add(xyz, label):
-        parts.append(xyz)
-        labels.append(np.full(len(xyz), label, np.int32))
-
-    n = int(wx * wy / 0.05 ** 2)
-    x, y = rng.uniform(0, wx, n), rng.uniform(0, wy, n)
-    g = np.stack([x, y, ground(x, y) + 0.01 * rng.randn(n)], 1)
-    road = np.abs(x - 8.0) < 3.0
-    add(g[road], 1)
-    add(g[~road], 2)
-    for _ in range(6):                      # low vegetation patches
-        c = rng.uniform([12, 0], [wx, wy])
-        m = 1500
-        p = c + rng.randn(m, 2) * 0.8
-        add(np.stack([p[:, 0], p[:, 1], ground(p[:, 0], p[:, 1])
-                      + rng.uniform(0, 0.5, m)], 1), 4)
-    for x0 in (0.5, 20.5):                  # building facades along y
-        m = int(wy * 8.0 / 0.05 ** 2)
-        add(np.stack([x0 + 0.02 * rng.randn(m), rng.uniform(0, wy, m),
-                      rng.uniform(0, 8.0, m)], 1), 5)
-    for _ in range(5):                      # trees: trunk and crown
-        cx, cy = rng.uniform([13, 1], [19, wy - 1])
-        z0 = ground(cx, cy)
-        m = 800
-        t = rng.uniform(0, 2 * np.pi, m)
-        add(np.stack([cx + 0.15 * np.cos(t), cy + 0.15 * np.sin(t),
-                      z0 + rng.uniform(0, 2.5, m)], 1), 3)
-        d = rng.randn(6000, 3)
-        d /= np.linalg.norm(d, axis=1, keepdims=True)
-        add(np.array([cx, cy, z0 + 4.0]) + d * rng.uniform(1.5, 2.0, (6000, 1))
-            * np.array([1.0, 1.0, 0.8]), 3)
-    m = int(wy * 1.0 / 0.05 ** 2)           # a low wall beside the road
-    add(np.stack([11.2 + 0.02 * rng.randn(m), rng.uniform(0, wy, m),
-                  rng.uniform(0, 1.0, m)], 1), 6)
-    for cy in (3.0, 11.0, 19.0):            # cars on the road
-        lo = np.array([6.5, cy, ground(8.0, cy)])
-        hi = lo + np.array([1.8, 4.2, 1.5])
-        m = 6000
-        p = rng.uniform(lo, hi, (m, 3))
-        face = rng.randint(0, 3, m)
-        p[np.arange(m), face] = np.where(rng.rand(m) < 0.5, lo[face],
-                                         hi[face])
-        add(p, 8)
-    xyz = np.concatenate(parts).astype(np.float32)
-    lab = np.concatenate(labels)
-    flip = rng.rand(len(lab)) < 0.02
-    lab[flip] = rng.choice([0, 7], int(flip.sum()))
-    speckle = lab == 7
-    xyz[speckle] += rng.randn(int(speckle.sum()), 3).astype(np.float32) * 0.3
-    # colours and return intensity by class, with noise
-    base = np.array([[128, 128, 128], [90, 90, 95], [110, 140, 70],
-                     [40, 110, 40], [80, 150, 60], [180, 160, 140],
-                     [150, 150, 150], [200, 40, 200], [170, 30, 30]])
-    rgb = np.clip(base[lab] + rng.randn(len(lab), 3) * 12, 0, 255)
-    inten = np.array([-500, 300, -800, -1200, -900, 600, 200, 0, 900])[lab] \
-        + rng.randn(len(lab)) * 150
-    pts = np.concatenate([xyz, inten[:, None], rgb], 1).astype(np.float32)
-    return pts, lab
-
-
 def semantic3d_blocks(seed, count):
     """``count`` Semantic3D training blocks of at least SEM3D_POINTS points
     each, made by the port's ``semantic3d.sample_training_blocks`` (10 m
@@ -1323,6 +1280,8 @@ def semantic3d_blocks(seed, count):
     import numpy as np
 
     from pointcloudsegmentation_tpu_torch.data import semantic3d
+    from pointcloudsegmentation_tpu_torch.data.synth_outdoor import \
+        outdoor_scan
 
     pts, labels = outdoor_scan(seed)
     blocks = semantic3d.sample_training_blocks(
@@ -2015,10 +1974,11 @@ def phase_gpn(card):
 
 def f32_parity(cfg, block, card, what):
     """One block's float32 forward on the card and on the CPU (weights from
-    torch.Generator seed 0) with the argmax agreement over its valid
-    points: both rows of the refine cascade, and its class-pure segments
-    (the refine net's pyramid, caught by a forward pre-hook).  Returns
-    {row name: agreement}."""
+    torch.Generator seed 0; the model's ``extra_keys`` fields of ``block``
+    passed after xyz, feats and mask) with the argmax agreement over its
+    valid points: both rows of the refine cascade, and its class-pure
+    segments (the refine net's pyramid, caught by a forward pre-hook).
+    Returns {row name: agreement}."""
     import dataclasses
 
     import torch
@@ -2033,9 +1993,10 @@ def f32_parity(cfg, block, card, what):
             mdl.refine.register_forward_pre_hook(
                 lambda m, args, dev=dev: segs.__setitem__(
                     dev, args[0].seg[0].cpu()))
+        keys = ("xyz", "feats", "mask") + getattr(mdl, "extra_keys", ())
         with torch.inference_mode():
             logits[dev] = mdl(*(torch.from_numpy(block[k]).to(dev)
-                                for k in ("xyz", "feats", "mask"))).cpu()
+                                for k in keys)).cpu()
         del mdl
     valid = torch.from_numpy(block["mask"])
     card_l, cpu_l = logits["cuda"], logits["cpu"]
@@ -2046,7 +2007,7 @@ def f32_parity(cfg, block, card, what):
     for name, (a, b) in rows.items():
         agree[name] = float((a.argmax(1) == b.argmax(1))[valid].double()
                             .mean())
-        log(f"[composite] {what} float32 {name} card vs CPU: argmax "
+        log(f"[f32] {what} float32 {name} card vs CPU: argmax "
             f"agreement {agree[name]:.6f} over {int(valid.sum())} valid "
             f"points (need >= {ECD_ARGMAX_MIN}), max |d| "
             f"{(a - b).abs().max():.3e} [{card}]")
@@ -2302,6 +2263,270 @@ def phase_composite(card):
     return total, k2_rows, k3_rows, records
 
 
+def dense_gathers(model, cfg):
+    """(what, N, K, F, dtype, grad) of every window-gather launch one
+    forward of ``dense_semantic3d`` makes, in order: its encoder's
+    (``gather_shapes``, with ``windowed_convs``' gradient flag for each
+    conv; the search reads take none).  ``DenseFeats``' k-NN reads its
+    dense rows by plain indexing."""
+    grads = iter([g for *_, g in windowed_convs(model, cfg)])
+    return [(what, n, k, f, dtype, "search" not in what and next(grads))
+            for what, n, k, f, dtype in gather_shapes(model, cfg)]
+
+
+def context_gathers(model, cfg):
+    """(what, N, K, F, dtype, grad) of every window-gather launch one
+    forward of ``context_semantic3d`` makes: the main ECD branch's on the
+    block's pyramid (``ecd_gathers``).  ``ContextNet`` launches none: its
+    stages take the global search on the unsorted context cloud."""
+    sizes = (cfg.data.num_points,) + tuple(cfg.data.caps)
+    return [(g[0], sizes[g[1]]) + g[2:] for g in ecd_gathers(model, cfg)]
+
+
+def knn_parity(block, k, card):
+    """``knn_in_support`` of one dense block's sampled points in its dense
+    cloud, float32 on the card and on the CPU: the share of valid slots
+    whose index and validity agree."""
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.ops import search
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        args = [torch.from_numpy(block[key]).to(dev) for key in
+                ("xyz", "mask", "dense_xyz", "dense_mask")]
+        idx, _, valid = search.knn_in_support(*args, k, chunk=1024)
+        out[dev] = (idx.cpu(), valid.cpu())
+    (gi, gv), (ci, cv) = out["cuda"], out["cpu"]
+    slots = gv | cv
+    bad = int((slots & ((gv != cv) | (gi != ci))).sum())
+    share = 1.0 - bad / max(int(slots.sum()), 1)
+    log(f"[semantic3d] knn_in_support (k {k}, {gi.shape[0]} x "
+        f"{block['dense_xyz'].shape[0]}) float32 card vs CPU: {bad} of "
+        f"{int(slots.sum())} valid slots differ ({share:.6f} equal, need >= "
+        f"{PARITY_NBR_MIN}) [{card}]")
+    check(share >= PARITY_NBR_MIN, f"knn_in_support parity {share}")
+    return share
+
+
+def phase_semantic3d(card):
+    """14: ``dense_semantic3d`` and ``context_semantic3d`` at full width,
+    no depth cut, bf16 compute with f32 params and seeded weights, on
+    blocks of the seeded outdoor scan (the context model's of the scene
+    around it) served by the Provider: (a) float32
+    card vs CPU; (b) S3D_PIPELINE_STEPS Trainer steps of TRAIN_BLOCKS
+    blocks with the counted launches, a falling loss, a repeatable step
+    and the guard; (c) the train CLI from ``--data-dir`` pkls with
+    ``--restore --eval``; (d) the eval sweep with the key's extra fields;
+    (e) K2 and K3 at each gather shape of the two models.  Returns
+    (launches, K2 rows, K3 rows, records)."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.config import semantic3d_config
+    from pointcloudsegmentation_tpu_torch.data import semantic3d
+    from pointcloudsegmentation_tpu_torch.data.synth_outdoor import (
+        scan_batches, scan_blocks)
+    from pointcloudsegmentation_tpu_torch.eval.interpolate import \
+        eval_scene_probs
+    from pointcloudsegmentation_tpu_torch.models.dense import DenseFeats
+    from pointcloudsegmentation_tpu_torch.ops import hierarchy
+    from pointcloudsegmentation_tpu_torch.train import cli
+    from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import (
+        blocks_fn_for, build_model)
+
+    total = {"window_gather": 0, "window_dslab": 0, "window_dslab_map": 0}
+    records, shapes = [], {}
+    gathers_fns = {"dense_semantic3d": dense_gathers,
+                   "context_semantic3d": context_gathers}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_s3d_pipelines_")
+    try:
+        for key in S3D_PIPELINE_KEYS:
+            cfg = semantic3d_config(model=key)
+            d = cfg.data
+            nblk = CLI_STEPS * TRAIN_BLOCKS
+            context = key == "context_semantic3d"
+            blocks = scan_blocks(0, d.num_points, context=context)
+            check(len(blocks) >= nblk, f"{key}: {len(blocks)} blocks of >= "
+                  f"{d.num_points} points from the scan, need {nblk}")
+            blocks = blocks[:nblk]
+            batch = scan_batches(blocks_fn_for(cfg, "semantic3d"),
+                                 blocks[:TRAIN_BLOCKS], d.num_points,
+                                 TRAIN_BLOCKS, "train", 0)[0]
+            log(f"[semantic3d] {key}: batch "
+                + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+                + f"; valid points per block {batch['mask'].sum(1).tolist()}"
+                + (f", dense {batch['dense_mask'].sum(1).tolist()}"
+                   if "dense_mask" in batch else "")
+                + (f", context {batch['ctx_mask'].sum(1).tolist()} of the "
+                   f"blocks' {[len(b['ctx_xyz']) for b in blocks]} context "
+                   f"points (the cap keeps {batch['ctx_mask'].shape[1]})"
+                   if "ctx_mask" in batch else ""))
+            gathers_fn = gathers_fns[key]
+            for what, n, k, f, dtype, _ in gathers_fn(
+                    build_model(cfg, None, "cpu"), cfg):
+                if "search" not in what:
+                    shapes.setdefault((n, k, f, dtype), f"{key} {what}")
+            fwd, step = gathers_per_block(cfg, gathers_fn)
+            block0 = {k: v[0] for k, v in batch.items()}
+            # (a) float32 card vs CPU on the batch's first block
+            rec = dict(model=key, f32=f32_parity(cfg, block0, card, key))
+            if context:
+                rec["ctx_points"] = [len(b["ctx_xyz"]) for b in blocks]
+            if key == "dense_semantic3d":
+                rec["knn_slots"] = knn_parity(block0, DenseFeats.k, card)
+            # (b) training steps on one batch at full width
+            torch.cuda.reset_peak_memory_stats()
+            trainer = Trainer(cfg, device="cuda")
+            state = trainer.init_state(torch.Generator().manual_seed(0))
+            log(f"[semantic3d] {key}: {trainer.num_params} params, launches "
+                f"per block {fwd} forward, {step} training step")
+            (state, m), counts, first = run_path(
+                f"{key} train step ({TRAIN_BLOCKS} blocks)",
+                lambda: trainer.train_step(state, batch),
+                times(step, TRAIN_BLOCKS))
+            total = plus(total, counts)
+            losses = [float(m["loss"])]
+            check(int(m["skipped"]) == 0, f"{key} first step skipped")
+            state0 = state
+
+            def timed():
+                st, out = state, []
+                for _ in range(S3D_PIPELINE_STEPS - 1):
+                    st, mm = trainer.train_step(st, batch)
+                    out.append(mm)
+                torch.cuda.synchronize()
+                return st, out
+
+            steps = S3D_PIPELINE_STEPS - 1
+            (state, ms), counts, secs = run_path(
+                f"{key} {steps} timed train steps", timed,
+                times(step, TRAIN_BLOCKS * steps))
+            total = plus(total, counts)
+            losses += [float(mm["loss"]) for mm in ms]
+            check(all(math.isfinite(x) for x in losses)
+                  and not any(int(mm["skipped"]) for mm in ms),
+                  f"{key} losses {losses}")
+            check(losses[-1] < losses[0], f"{key} loss does not fall: "
+                  f"{losses}")
+            pps = int(batch["mask"].sum()) * steps / secs
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"[semantic3d] {key}: losses {losses} (falling), first step "
+                f"{first:.2f} s (set-up included); {secs / steps:.4f} s a "
+                f"step over {steps} steps, {pps:.1f} train points/s, peak "
+                f"{peak:.3f} GiB [{card}]")
+            a, _ = trainer.train_step(state0, batch)
+            b, _ = trainer.train_step(state0, batch)
+            bad = {k: v.copy() for k, v in batch.items()}
+            bad["feats"][-1, 100, 0] = float("nan")
+            c, mc = trainer.train_step(a, bad)
+            torch.cuda.synchronize()
+            for field in ("params", "mu", "nu", "count"):
+                check(torch.equal(getattr(a, field), getattr(b, field)),
+                      f"{key}: two runs of one step differ in {field}")
+                check(torch.equal(getattr(c, field), getattr(a, field)),
+                      f"{key}: the NaN batch changed {field}")
+            check(int(mc["skipped"]) == 1, f"{key}: NaN batch not skipped")
+            log(f"[semantic3d] {key}: one step twice from one state: params, "
+                f"mu, nu and count bitwise equal; NaN feature: skipped="
+                f"{int(mc['skipped'])}, state unchanged")
+            if key == "context_semantic3d":
+                mdl = trainer.model
+                dev_b = {k: torch.from_numpy(v[0]).cuda()
+                         for k, v in batch.items()}
+                reset_counts()
+                with torch.no_grad():
+                    pyr = hierarchy.build_pyramid(
+                        dev_b["ctx_xyz"], dev_b["ctx_mask"],
+                        (mdl.ctx_voxel_size,), (mdl.ctx_cap,),
+                        mdl.ctx_block_size)
+                    mdl.context(pyr, dev_b["ctx_feats"])
+                ctx_counts = read_counts()
+                check(not any(ctx_counts.values()),
+                      f"ContextNet launched {ctx_counts}")
+                log(f"[semantic3d] ContextNet alone on the card: launches "
+                    f"{ctx_counts}")
+            # (d) the eval sweep with the key's extra fields
+            model = trainer.bind(state).eval()
+            sweep = [{k: v[i] for k, v in batch.items()}
+                     for i in range(TRAIN_BLOCKS)]
+            (sxyz, probs), counts, ssecs = run_path(
+                f"{key} eval_scene_probs ({TRAIN_BLOCKS} blocks)",
+                lambda: eval_scene_probs(model, sweep,
+                                         extra_keys=model.extra_keys),
+                times(fwd, TRAIN_BLOCKS))
+            total = plus(total, counts)
+            dev = float(np.abs(probs.sum(1) - 1.0).max())
+            check(probs.shape == (int(batch["mask"].sum()), d.num_classes)
+                  and np.isfinite(probs).all() and dev <= PROB_SUM_TOL,
+                  f"{key} sweep probs {probs.shape}, rows sum to 1 +- {dev}")
+            log(f"[semantic3d] {key} sweep: probs {probs.shape} finite, rows "
+                f"sum to 1 +- {dev:.2e}; {ssecs:.3f} s for {TRAIN_BLOCKS} "
+                f"blocks [{card}]")
+            rec.update(params=trainer.num_params, launches_per_block=step,
+                       losses=losses, first_step_s=first,
+                       step_s=secs / steps, train_points_per_sec=pps,
+                       peak_gib=peak)
+            del trainer, state, state0, model, a, b, c, m, ms
+            torch.cuda.empty_cache()
+            # (c) the train CLI from --data-dir pkls, and --restore --eval
+            pkl = os.path.join(tmp, key, "pkl")
+            semantic3d.save_blocks(os.path.join(pkl, "scan0.pkl"), blocks)
+            ck = os.path.join(tmp, key, "ck")
+            base = ["--config", "semantic3d", "--model", key, "--data-dir",
+                    pkl, "--batch-size", str(TRAIN_BLOCKS),
+                    "--checkpoint-dir", ck]
+            _, counts, csecs = run_path(
+                f"train CLI {key} --data-dir ({CLI_STEPS} train + "
+                f"{CLI_STEPS} test steps of {TRAIN_BLOCKS} blocks)",
+                lambda: cli.main(base + [
+                    "--epochs", "1", "--metrics-file",
+                    os.path.join(tmp, key, "train.jsonl")]),
+                plus(times(step, nblk), times(fwd, nblk)))
+            total = plus(total, counts)
+            crec, = read_records(os.path.join(tmp, key, "train.jsonl"))
+            check(set(crec) == METRICS_KEYS and math.isfinite(
+                crec["train_loss"]) and len(crec["iou"]) == d.num_classes,
+                f"{key} CLI record {crec}")
+            _, counts, _ = run_path(
+                f"train CLI {key} --restore --eval",
+                lambda: cli.main(base + ["--restore", "--eval",
+                                         "--metrics-file",
+                                         os.path.join(tmp, key,
+                                                      "eval.jsonl")]),
+                times(fwd, nblk))
+            total = plus(total, counts)
+            ev, = read_records(os.path.join(tmp, key, "eval.jsonl"))
+            for name in ("miou", "oiou", "oacc", "iou", "acc"):
+                check(ev[name] == crec[name], f"{key} --restore --eval "
+                      f"{name} {ev[name]} differs from the epoch's "
+                      f"{crec[name]}")
+            log(f"[semantic3d] train CLI {key}: train loss "
+                f"{crec['train_loss']:.5f}, test mIoU {crec['miou']!r}, oAcc "
+                f"{crec['oacc']!r}, {crec['points_per_sec']:.1f} train "
+                f"points/s in {csecs:.2f} s; --restore --eval gives them bit "
+                f"for bit [{card}]")
+            rec["cli"] = dict(train_loss=crec["train_loss"],
+                              miou=crec["miou"], oacc=crec["oacc"])
+            records.append(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (e) K2 and K3 at each conv gather shape of the two models
+    cases = [(what, n, k, f, dtype) for (n, k, f, dtype), what in
+             shapes.items()]
+    log(f"[semantic3d] gather shapes: "
+        f"{[(c[1], c[2], c[3], str(c[4])) for c in cases]}")
+    k2_rows, k3_rows = kernel_cases(cases, 14, card)
+    log(f"[semantic3d] records: {json.dumps(records)}")
+    return total, k2_rows, k3_rows, records
+
+
 def main() -> int:
     try:
         import torch
@@ -2362,6 +2587,12 @@ def main() -> int:
     rows += k2_comp
     drows += k3_comp
     entry_launches = plus(entry_launches, composite_launches)
+    t14 = time.perf_counter()
+    s3d_launches, k2_s3d, k3_s3d, _ = phase_semantic3d(card)
+    log(f"[semantic3d] phase 14 in {time.perf_counter() - t14:.1f} s")
+    rows += k2_s3d
+    drows += k3_s3d
+    entry_launches = plus(entry_launches, s3d_launches)
 
     main_row = next(r for r in rows if r["name"].endswith("conv"))
     dmain, fmain = drows[0], frows[0]
@@ -2373,8 +2604,9 @@ def main() -> int:
         f"alone in its own row) and {fmain['name']} "
         f"{fmain['dtype']} (fused conv); launches are the serve sweep's plus "
         f"one training step's, the entry points', the PointNet family's, "
-        f"the ECD family's, the GPN family's and the composite models', "
-        f"and the fused-conv bench's; eval {pps:.1f} "
+        f"the ECD family's, the GPN family's, the composite models' and "
+        f"the Semantic3D pipelines', and the fused-conv bench's; eval "
+        f"{pps:.1f} "
         f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "
         f"GiB")
     timing = ("ms", "plain_ms", "bound_ms", "bound_by")

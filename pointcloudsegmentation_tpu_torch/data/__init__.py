@@ -4,7 +4,8 @@ data modules (``io_util``, ``augment``, ``s3dis``, ``scannet``,
 native host library's binding (``native``), and the background-thread
 ``Provider`` with the device transfer (``provider``).  ``blocks_fn_for`` and
 ``read_fn_for`` pick a config's reader of prepared pkls for the train CLI
-and the scene eval."""
+and the scene eval; a model with inputs beyond the block names its own
+(``train.model_zoo.read_fn_for``)."""
 from functools import partial
 
 from . import io_util, modelnet, s3dis, scannet, semantic3d
@@ -29,7 +30,13 @@ def read_fn_for(cfg, config_name: str):
     dict per ``(xyz, label)`` pair (``modelnet.clouds_from_pkl``)."""
     if config_name == "modelnet40":
         return modelnet.clouds_from_pkl
-    return partial(_read, blocks_fn_for(cfg, config_name))
+    return pkl_read_fn(blocks_fn_for(cfg, config_name))
+
+
+def pkl_read_fn(blocks_fn):
+    """A Provider read_fn (model, pkl path) -> block dicts: ``blocks_fn``
+    on the loaded pkl."""
+    return partial(_read, blocks_fn)
 
 
 def _read(blocks_fn, model: str, filename: str):

@@ -8,8 +8,10 @@ and the blocks within a file.  Blocks are padded to static shapes and stacked
 to [B, ...] numpy arrays; the same seed gives the JAX package's batches.
 An exception in the producer (a bad pkl, a native library that did not
 build) is raised by the consumer, where the JAX Provider ends the epoch
-early.  The JAX Provider's context and dense-cloud fields come with the
-read_fns that yield them (ROADMAP M13).  ``device_prefetch`` moves the
+early.  Blocks of the dense pipeline carry their dense cloud padded to
+``dense_num_points`` (``dense_*``), blocks of the context pipeline their
+context cloud padded to ``ctx_num_points`` (``ctx_*``, the context
+indices riding the block's subsample).  ``device_prefetch`` moves the
 batches to the card.
 """
 from __future__ import annotations
@@ -22,7 +24,8 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, \
 import numpy as np
 import torch
 
-from .batching import pad_block, stack_blocks
+from ..models.context import CTX_CAP
+from .batching import pad_block, pad_context, stack_blocks
 
 _STOP = object()
 
@@ -40,13 +43,22 @@ class Provider:
 
     def __init__(self, file_list: Sequence[str], model: str, batch_size: int,
                  read_fn: Callable[[str, str], List[Dict]], num_points: int,
-                 seed: int = 0, max_queue: int = 4):
+                 seed: int = 0, max_queue: int = 4,
+                 dense_num_points: int = 0,
+                 ctx_num_points: int = CTX_CAP):
         assert model in ("train", "test")
         self.file_list = list(file_list)
         self.model = model
         self.batch_size = batch_size
         self.read_fn = read_fn
         self.num_points = num_points
+        # static capacity for the dense cloud of dense-pipeline blocks
+        # (read_fns yielding dense_xyz/dense_feats); 0 = 4x num_points
+        self.dense_num_points = dense_num_points or 4 * num_points
+        # static capacity for context sub-clouds (read_fns yielding ctx_*):
+        # the context model's cap, 512, covers a 50 m window at 5 m voxels
+        # with z slack
+        self.ctx_num_points = ctx_num_points
         self.rng = np.random.RandomState(seed)
         self.max_queue = max_queue
         self._q: queue.Queue = queue.Queue(maxsize=max_queue)
@@ -68,9 +80,7 @@ class Provider:
                     order = self.rng.permutation(len(blocks))
                     blocks = [blocks[i] for i in order]
                 for b in blocks:
-                    pending.append(pad_block(b["xyz"], b.get("feats"),
-                                             b.get("labels"),
-                                             self.num_points, self.rng))
+                    pending.append(self._pad(b))
                     if len(pending) == self.batch_size:
                         self._q.put(stack_blocks(pending))
                         pending = []
@@ -85,6 +95,25 @@ class Provider:
             self._q.put(_Failed(e))
         finally:
             self._q.put(_STOP)
+
+    def _pad(self, b: Dict) -> Dict:
+        """One block padded to the static shapes, its rng draws in the JAX
+        Provider's order: the block's subsample, then the dense cloud's."""
+        pb = pad_block(b["xyz"], b.get("feats"), b.get("labels"),
+                       self.num_points, self.rng,
+                       point_fields={"ctx_idx": b["ctx_idx"]}
+                       if "ctx_idx" in b else None)
+        if "ctx_xyz" in b:
+            pb.update(pad_context(b["ctx_xyz"], b["ctx_feats"],
+                                  pb.pop("ctx_idx"), self.ctx_num_points,
+                                  pb["xyz"]))
+        if "dense_xyz" in b:
+            dp = pad_block(b["dense_xyz"], b["dense_feats"], None,
+                           self.dense_num_points, self.rng)
+            pb["dense_xyz"] = dp["xyz"]
+            pb["dense_feats"] = dp["feats"]
+            pb["dense_mask"] = dp["mask"]
+        return pb
 
     # -- consumer ---------------------------------------------------------
     def __iter__(self) -> Iterator[Dict]:

@@ -1,13 +1,20 @@
 """Semantic3D dataset pipeline, the port's own copy of the training part of
 ``pointcloudsegmentation_tpu.data.semantic3d`` (reference:
-data_util.py:50-80, semantic3d_util.py:136-295).
+data_util.py:50-80, semantic3d_util.py:136-295,
+semantic3d_context_util.py:110-153, 322-333, 578-583,
+semantic3d_dense_util.py:10-97).
 
 Raw ``.txt`` scans (x y z intensity r g b + ``.labels``) -> macro blocks
 (80 m at a 0.03 m grid downsample) -> 10 m training blocks with rotation
 augmentation -> per-scan block pkls (``save_blocks``) -> the train-time read
-(``blocks_from_list``: flips and color jitter).  Labels stay raw: 0 =
-unlabeled, 1..8 the 8 classes; the port's ``semantic3d_config`` ignores
-label 0 and shifts the rest by -1 (ROADMAP.md §3)."""
+(``blocks_from_list``: flips and color jitter).  The dense pipeline reads
+the same pkls with a grid-downsampled subset beside each block's dense
+cloud (``dense_blocks_from_list``); the context pipeline pairs each block
+with its 50 m context cloud and per-point context indices
+(``prepare_context_scene``, read by ``context_blocks_from_list``).  Labels
+stay raw: 0 = unlabeled, 1..8 the 8 classes; the port's
+``semantic3d_config`` ignores label 0 and shifts the rest by -1
+(ROADMAP.md §3)."""
 from __future__ import annotations
 
 import os
@@ -15,7 +22,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from . import augment
+from . import augment, native
 from .io_util import save_pkl
 
 NUM_CLASSES = 8  # man-made terrain .. cars (class 0 = unlabeled, ignored)
@@ -122,4 +129,130 @@ def blocks_from_list(model: str, blocks: List[Dict],
         out.append({"xyz": xyz.astype(np.float32),
                     "feats": feats.astype(np.float32),
                     "labels": b["labels"].astype(np.int32)})
+    return out
+
+
+def dense_blocks_from_list(model: str, blocks: List[Dict],
+                           sample_stride: float = 0.25,
+                           rng: Optional[np.random.RandomState] = None
+                           ) -> List[Dict]:
+    """The dense pipeline's read of a block pkl already loaded (the JAX
+    ``dense_blocks_from_pkl``, semantic3d.py:319-336): each block read as
+    ``blocks_from_list`` reads it is the DENSE cloud (``dense_xyz``,
+    ``dense_feats``), and its ``sample_stride`` grid-downsampled subset
+    carries the labels through the pyramid; the model joins the two on
+    the device (``models.dense.DenseFeats``)."""
+    out = []
+    for b in blocks_from_list(model, blocks, rng):
+        keep = augment.grid_downsample(b["xyz"], sample_stride)
+        out.append({"xyz": b["xyz"][keep], "feats": b["feats"][keep],
+                    "labels": b["labels"][keep],
+                    "dense_xyz": b["xyz"], "dense_feats": b["feats"]})
+    return out
+
+
+def context_cloud(points: np.ndarray, ds_size: float = 5.0) -> np.ndarray:
+    """Global average-downsampled context cloud (global_avg_downsample,
+    semantic3d_context_util.py:110-153): mean xyz+feats per 5 m voxel."""
+    xyz = points[:, :3]
+    mins = xyz.min(0, keepdims=True)
+    coords = np.floor((xyz - mins) / ds_size).astype(np.int64)
+    dims = coords.max(0) + 1
+    key = (coords[:, 0] * dims[1] + coords[:, 1]) * dims[2] + coords[:, 2]
+    order = np.argsort(key, kind="stable")
+    skey = key[order]
+    boundaries = np.concatenate([[0], np.nonzero(np.diff(skey))[0] + 1,
+                                 [len(skey)]])
+    out = np.empty((len(boundaries) - 1, points.shape[1]), np.float32)
+    for vi in range(len(boundaries) - 1):
+        seg = order[boundaries[vi]:boundaries[vi + 1]]
+        out[vi] = points[seg].mean(0)
+    return out
+
+
+def context_indices(block_xyz: np.ndarray, ctx_xyz: np.ndarray
+                    ) -> np.ndarray:
+    """Nearest context point per block point (compute_context_idxs,
+    semantic3d_context_util.py:322-333), by the native k-NN; a native
+    library that does not build raises (no dense argmin in its place)."""
+    idx, _ = native.knn(ctx_xyz, block_xyz, 1, cell_hint=5.0)
+    return idx[:, 0].astype(np.int32)
+
+
+def prepare_context_scene(points: np.ndarray, labels: np.ndarray,
+                          block_size: float = 10.0, stride: float = 5.0,
+                          ds_stride: float = 0.06, ctx_ds: float = 5.0,
+                          ctx_block: float = 50.0, min_pn: int = 1024,
+                          rng: Optional[np.random.RandomState] = None,
+                          rotate: bool = True,
+                          covar_nn_size: float = 0.3) -> List[Dict]:
+    """Scan -> 10 m training blocks EACH PAIRED with its 50 m context
+    sub-cloud and per-point nearest-context indices -- the offline context
+    prep (semantic3d_context_util.py:578-583 sample_context_block fan-out).
+
+    The optional z-rotation is applied to the WHOLE scan before both the
+    block sampler and the context downsample, so block and context stay in
+    one rigid frame; ctx_xyz is stored block-relative (same origin as the
+    block's xyz), ready for ``ContextFusionModel``.
+    """
+    rng = rng or np.random.RandomState()
+    pts = np.asarray(points, np.float32)
+    if rotate and rng.rand() > 0.3:
+        pts = pts.copy()
+        pts[:, :3] = augment.rotate_z(
+            np.ascontiguousarray(pts[:, :3]), rng.rand() * np.pi / 2.0)
+    blocks = sample_training_blocks(pts, labels, block_size=block_size,
+                                    stride=stride, ds_stride=ds_stride,
+                                    min_pn=min_pn, rng=rng, rotate=False,
+                                    covar_nn_size=covar_nn_size)
+    ctx = context_cloud(pts, ctx_ds)            # [m, 7] mean x y z i r g b
+    ctx_abs = ctx[:, :3]
+    it = ctx[:, 3:4]
+    it = (it - it.mean()) / (it.std() + 1e-6)
+    ctx_feats_all = np.concatenate([ctx[:, 4:7] / 127.5 - 1.0, it],
+                                   1).astype(np.float32)
+    for b in blocks:
+        mn = b["block_min"]
+        rel = ctx_abs - mn[None, :]
+        sel = (np.abs(rel[:, 0]) <= ctx_block / 2.0) \
+            & (np.abs(rel[:, 1]) <= ctx_block / 2.0)
+        if not sel.any():                        # degenerate scan: keep the
+            sel = np.zeros(len(rel), bool)       # nearest voxel so the
+            sel[np.argmin((rel[:, :2] ** 2).sum(1))] = True  # gather works
+        cx = rel[sel].astype(np.float32)
+        b["ctx_xyz"] = cx
+        b["ctx_feats"] = ctx_feats_all[sel]
+        b["ctx_idx"] = context_indices(b["xyz"], cx)
+    return blocks
+
+
+def context_blocks_from_list(model: str, blocks: List[Dict],
+                             rng: Optional[np.random.RandomState] = None
+                             ) -> List[Dict]:
+    """The context pipeline's read of a pkl of ``prepare_context_scene``
+    blocks already loaded (the JAX ``context_blocks_from_pkl``,
+    semantic3d.py:281-311, train_gpn_semantic3d_context.py:50-71 feed):
+    train-time flips are applied to block AND context cloud together (one
+    rigid frame: the nearest-context relation is mirror-invariant), color
+    jitter on the block features only."""
+    rng = rng or np.random.RandomState()
+    out = []
+    for b in blocks:
+        xyz, feats = b["xyz"], b["feats"]
+        cx, cf = b["ctx_xyz"], b["ctx_feats"]
+        if model == "train":
+            if rng.rand() < 0.5:
+                xyz = augment.flip(xyz, 0)
+                cx = augment.flip(cx, 0)
+            if rng.rand() < 0.5:
+                xyz = augment.flip(xyz, 1)
+                cx = augment.flip(cx, 1)
+            feats = feats.copy()
+            feats[:, :3] += rng.uniform(-0.02, 0.02, (len(feats), 3))
+        out.append({"xyz": xyz.astype(np.float32),
+                    "feats": feats.astype(np.float32),
+                    "labels": b["labels"].astype(np.int32),
+                    "ctx_xyz": cx.astype(np.float32),
+                    "ctx_feats": cf.astype(np.float32),
+                    "ctx_idx": np.asarray(b["ctx_idx"], np.int32)})
     return out

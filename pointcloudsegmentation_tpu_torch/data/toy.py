@@ -1,8 +1,8 @@
 """Synthetic S3DIS-like room blocks for tests and benchmarks (the port's
 own copy of ``pointcloudsegmentation_tpu.data.toy``, numpy only, cut to the
-room blocks the port calls: no two-class toy clouds, no ``dense_batches``).
-The same seed gives the same arrays as the JAX package's generators with
-``kind="room"``."""
+room blocks the port calls: no two-class toy clouds).  The same seed gives
+the same arrays as the JAX package's generators with ``kind="room"`` and
+as its ``dense_batches``."""
 from __future__ import annotations
 
 from typing import Dict, Iterator
@@ -34,6 +34,32 @@ def synthetic_room_block(rng: np.random.RandomState, n: int = 8192,
     perm = rng.permutation(n)
     return {"xyz": xyz[perm], "feats": feats[perm],
             "labels": labels[perm].astype(np.int32)}
+
+
+def dense_batches(num_batches: int, batch_size: int, num_points: int = 512,
+                  dense_factor: int = 4, seed: int = 0,
+                  num_classes: int = 9, feat_dim: int = 13
+                  ) -> Iterator[Dict]:
+    """Synthetic dense-pipeline batches: a dense room block of
+    ``dense_factor * num_points`` points and a random subset of
+    ``num_points`` that carries the labels (``dense_xyz``,
+    ``dense_feats``, ``dense_mask`` beside the sampled fields), as the
+    dense trainer feeds them (train_gpn_semantic3d_dense.py:52-65)."""
+    rng = np.random.RandomState(seed)
+    nd = num_points * dense_factor
+    for _ in range(num_batches):
+        blocks = []
+        for _ in range(batch_size):
+            d = synthetic_room_block(rng, nd, num_classes, feat_dim)
+            sel = rng.choice(nd, num_points, replace=False)
+            b = pad_block(d["xyz"][sel], d["feats"][sel], d["labels"][sel],
+                          num_points, rng)
+            dense = pad_block(d["xyz"], d["feats"], None, nd, rng)
+            b["dense_xyz"] = dense["xyz"]
+            b["dense_feats"] = dense["feats"]
+            b["dense_mask"] = dense["mask"]
+            blocks.append(b)
+        yield stack_blocks(blocks)
 
 
 def toy_batches(num_batches: int, batch_size: int, num_points: int = 2048,

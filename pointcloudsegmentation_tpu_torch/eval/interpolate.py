@@ -3,7 +3,7 @@ Gaussian k-NN interpolation back to the dense cloud (mirror of
 ``pointcloudsegmentation_tpu.eval.interpolate``)."""
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -16,25 +16,27 @@ S3DIS_RATIO = 1.0 / (2 * 0.075 * 0.075)
 
 
 @torch.inference_mode()
-def eval_scene_probs(model: nn.Module, blocks: Iterable[Dict]
+def eval_scene_probs(model: nn.Module, blocks: Iterable[Dict],
+                     extra_keys: Sequence[str] = ()
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """Per-block forward -> (xyz_global [M, 3], probs [M, C]) of all valid
     sampled points, float32.
 
     blocks: dicts with xyz [N, 3], feats [N, F], mask [N] (numpy arrays or
-    tensors) and optionally block_min [3].  ``model(xyz, feats, mask)``
-    returns logits [N, C], or [2, N, C] for the refine cascade, whose
-    refine row is used (JAX ``eval/interpolate.py:47-49``); softmax runs
-    in float32.  The sweep is issued
-    without host synchronisation; probabilities come back in one transfer
-    at the end."""
+    tensors), optionally block_min [3], and the per-pipeline extras
+    (``ctx_*`` / ``dense_*``) that ``extra_keys`` names, passed in that
+    order after (xyz, feats, mask) (JAX ``eval/interpolate.py:27-58``).
+    ``model(xyz, feats, mask, *extras)`` returns logits [N, C], or [2, N,
+    C] for the refine cascade, whose refine row is used (JAX
+    ``:47-49``); softmax runs in float32.  The sweep is issued without
+    host synchronisation; probabilities come back in one transfer at the
+    end."""
     dev = next(model.parameters()).device
     blocks = list(blocks)
     dev_probs = []
     for b in blocks:
-        logits = model(torch.as_tensor(b["xyz"], device=dev),
-                       torch.as_tensor(b["feats"], device=dev),
-                       torch.as_tensor(b["mask"], device=dev))
+        logits = model(*(torch.as_tensor(b[k], device=dev) for k in
+                         ("xyz", "feats", "mask", *extra_keys)))
         if logits.dim() == 3:
             logits = logits[0]
         dev_probs.append(torch.softmax(logits.float(), dim=-1))

@@ -17,9 +17,10 @@ the config's ignore label are left out of the score, and with ignore label
 0 the rest shift down by one, as in training.  Per-scene metrics go to
 ``<out-dir>/scene_eval.json``.  It runs on the card unless ``--device cpu``
 is given.  The JAX script's ``--rot-ensemble``, ``--labels-out``, the
-context and dense pipelines, ``--exact-search`` and the Semantic3D scenes
-(their interpolation ratio and scene reader) are not ported yet
-(ROADMAP.md M8b), so ``--config`` takes ``s3dis`` and ``scannet``.
+context and dense pipelines' scenes, ``--exact-search`` and the Semantic3D
+scenes (their interpolation ratio and scene reader) are not ported yet
+(ROADMAP.md M8b), so ``--config`` takes ``s3dis`` and ``scannet`` and a
+model with inputs beyond the block is refused.
 """
 from __future__ import annotations
 
@@ -137,6 +138,11 @@ def main(argv=None):
         over["data_caps"] = (args.num_points // 2, args.num_points // 8)
     cfg = CONFIGS[args.config](**over)
     trainer = Trainer(cfg, device=device)
+    extra = getattr(trainer.model, "extra_keys", ())
+    if extra:
+        raise SystemExit(f"{cfg.model} needs {list(extra)} for every "
+                         "block, which no scene pkl holds yet (ROADMAP.md "
+                         "M8b)")
     if args.checkpoint_dir:
         ckpt = CheckpointManager(args.checkpoint_dir)
         state = trainer.init_state(state=ckpt.restore(device=device))

@@ -307,21 +307,27 @@ class PointNetSegEncoder(nn.Module):
 
     Levels that are Morton-sorted, tile-aligned and at least 4 tiles long
     take the windowed search (tile/window 256 by default); the others take
-    the global search."""
+    the global search.  The windowed search's overflow slots read through
+    a tile-shared pool of ``ov_pool_size`` rows (the JAX build's 256), or
+    with 0 hold per-point global indices (the flax default, which the JAX
+    ``dense_semantic3d`` build keeps)."""
 
     def __init__(self, feat_dim: int, arch: Arch = S3DIS_ARCH,
                  head_dim: Optional[int] = HEAD_DIM,
                  search_chunk: int = 1024, win_tile: int = 256,
-                 win_window: int = 256, dtype: Optional[torch.dtype] = None):
+                 win_window: int = 256, ov_pool_size: int = OV_POOL_SIZE,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if head_dim is not None and arch.decoder == "deconv":
             raise ValueError("the factored head needs the linear concat "
                              "decoder: use head_dim=None with deconv")
+        self.feat_dim = feat_dim
         self.arch = arch
         self.head_dim = head_dim
         self.search_chunk = search_chunk
         self.win_tile = win_tile
         self.win_window = win_window
+        self.ov_pool_size = ov_pool_size
         self.dtype = dtype
         n_stages = len(arch.stages)
         w = feat_dim
@@ -404,8 +410,8 @@ class PointNetSegEncoder(nn.Module):
                 xyz, mask, bands, tile=self.win_tile, window=self.win_window,
                 cand_k=search.effective_win_cand_k(WIN_CAND_K, CAND_K,
                                                    bands, n),
-                ov_slots=OV_SLOTS, chunk=chunk, ov_pool_size=OV_POOL_SIZE,
-                return_sxyz=True)
+                ov_slots=OV_SLOTS, chunk=chunk,
+                ov_pool_size=self.ov_pool_size, return_sxyz=True)
         else:
             res = search.multi_band_neighbors(
                 xyz, mask, bands, cand_k=min(CAND_K, n), chunk=chunk,

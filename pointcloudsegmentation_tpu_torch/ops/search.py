@@ -2,7 +2,8 @@
 ``pointcloudsegmentation_tpu.ops.search`` in its production configurations:
 windowed slab selection with a tile-shared overflow pool or with per-point
 overflow slots, the global search for levels too small to window, and the
-dispatch between them, ``band_neighbors_auto``).
+dispatch between them, ``band_neighbors_auto``), the radius search, and
+the k nearest support points of another cloud, ``knn_in_support``.
 
 Selection reproduces the JAX CPU result slot for slot:
 
@@ -190,6 +191,33 @@ def radius_neighbors(xyz: torch.Tensor, mask: torch.Tensor, radius: float,
     valid &= mask[:, None]
     idx = torch.where(valid, idx, row[:, None])
     return Neighborhood(idx=idx.to(torch.int32), mask=valid)
+
+
+def knn_in_support(query: torch.Tensor, query_mask: torch.Tensor,
+                   support: torch.Tensor, support_mask: torch.Tensor,
+                   k: int, chunk: int = 1024
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The k nearest valid support points of each query (JAX
+    ``ops/search.py:309-345``): per query chunk the [chunk, Ns] scores
+    ``|q|^2 + |s|^2 - 2 q.s`` clamped at 0, the k smallest, ties to the
+    lower index.  The JAX version splits a support wider than 1024 columns
+    into tiles of 512 (``_tiled_top_k``), which selects the same slots in
+    the same order as one exact top-k.  Returns (idx [Nq, K] int32, d2
+    [Nq, K] float32, valid [Nq, K] bool); an invalid slot (a masked query,
+    or fewer than K valid support points) holds index 0 and distance 0."""
+    nq = query.shape[0]
+    s_sq = sqnorm3(support)
+    idx = torch.empty((nq, k), dtype=torch.long, device=query.device)
+    d2 = torch.empty((nq, k), dtype=torch.float32, device=query.device)
+    for beg in range(0, nq, chunk):
+        q = query[beg:beg + chunk]
+        dq = (sqnorm3(q)[:, None] + s_sq[None, :]
+              - 2.0 * (q @ support.T)).clamp(min=0.0)
+        dq = torch.where(support_mask[None, :], dq, torch.full_like(dq, _INF))
+        d2[beg:beg + chunk], idx[beg:beg + chunk] = _topk_smallest(dq, k)
+    valid = (d2 < _INF * 0.5) & query_mask[:, None]
+    return (torch.where(valid, idx, torch.zeros_like(idx)).to(torch.int32),
+            torch.where(valid, d2, torch.zeros_like(d2)), valid)
 
 
 def multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor, bands,

@@ -1,12 +1,20 @@
 """Device profile of a training step on one CUDA card.
 
-    python -m pointcloudsegmentation_tpu_torch.profile_train [--model KEY]
+    python -m pointcloudsegmentation_tpu_torch.profile_train \
+        [--config s3dis|semantic3d] [--model KEY]
 
-Run from the root of a checkout.  Builds ``--model`` (default the flagship
-``pointnet_s3dis``; any key of ``s3dis_config``) at full width (bf16
-compute, weights from ``torch.Generator`` seed 0, S3DIS class weights) and
-feeds it steps of 4 blocks of 8192 points (``toy.toy_batches``, seed 0),
-as ``chip_smoke.py`` phases 7, 10 and 11 do.  Then:
+Run from the root of a checkout.  Builds ``--model`` (default the config's
+own: the flagship ``pointnet_s3dis`` under ``s3dis``) at full width (bf16
+compute, weights from ``torch.Generator`` seed 0, the config's class
+weights) and feeds it steps of 4 blocks: under ``s3dis`` of 8192 points
+(``toy.toy_batches``, seed 0), as ``chip_smoke.py`` phases 7, 10 and 11
+do; under ``semantic3d`` (any of its keys, ``dense_semantic3d`` and
+``context_semantic3d`` included) of 10,240 points, 10 m blocks of the
+seeded synthetic outdoor scan (for a model with a context cloud, of the
+120 m scene around it, so a block's context window holds a few hundred
+voxels) served by the ``Provider`` with the model's dense or context
+fields (``data.synth_outdoor``), as phase 14 does.
+Then:
 
 - times 3 unprofiled chains of 10 steps, one host sync per chain, and takes
   the median step;
@@ -79,29 +87,46 @@ def summarize(averages, steps: int, step_s: float) -> Dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", default="pointnet_s3dis",
-                   help="registry key under s3dis_config")
+    p.add_argument("--config", choices=("s3dis", "semantic3d"),
+                   default="s3dis")
+    p.add_argument("--model", default=None,
+                   help="registry key (default: the config's model)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
 
     from torch.profiler import ProfilerActivity, profile
 
-    from .config import s3dis_config
-    from .data import toy
+    from .config import CONFIGS
+    from .data import synth_outdoor, toy
     from .data.provider import to_device
     from .train.loop import Trainer
+    from .train.model_zoo import blocks_fn_for
     from .utils.timing import card as card_name
 
     card = card_name()
+    cfg = CONFIGS[args.config](**({"model": args.model} if args.model
+                                  else {}))
     print(f"[profile] {card}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}; {args.model}", flush=True)
-    cfg = s3dis_config(model=args.model)
+          f"{torch.version.cuda}; {args.config} {cfg.model}", flush=True)
     trainer = Trainer(cfg, device="cuda")
     state = trainer.init_state(torch.Generator().manual_seed(0))
-    batches = [to_device(b, "cuda") for b in toy.toy_batches(
-        2, batch_size=BLOCKS, num_points=POINTS, num_classes=13,
-        feat_dim=12)]
+    if args.config == "semantic3d":
+        n = cfg.data.num_points
+        blocks = synth_outdoor.scan_blocks(
+            0, n, context="ctx_idx" in getattr(trainer.model, "extra_keys",
+                                               ()))[:2 * BLOCKS]
+        host = synth_outdoor.scan_batches(blocks_fn_for(cfg, args.config),
+                                          blocks, n, BLOCKS, "train", 0)
+        for b in host:
+            if "ctx_mask" in b:
+                print(f"[profile] valid context points per block "
+                      f"{b['ctx_mask'].sum(1).tolist()} of "
+                      f"{b['ctx_mask'].shape[1]}", flush=True)
+    else:
+        host = toy.toy_batches(2, batch_size=BLOCKS, num_points=POINTS,
+                               num_classes=13, feat_dim=12)
+    batches = [to_device(b, "cuda") for b in host]
     for i in range(2):                                   # build + warm-up
         state, m = trainer.train_step(state, batches[i])
     torch.cuda.synchronize()

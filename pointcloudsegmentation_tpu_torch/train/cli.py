@@ -11,16 +11,24 @@ Examples:
       --data-dir data/Semantic3D/sampled_train   # semantic3d.save_blocks pkls
   python -m pointcloudsegmentation_tpu_torch.train.cli --config modelnet40 \
       --data-dir data/ModelNet40/train   # pkls of (xyz, label) pairs
+  python -m pointcloudsegmentation_tpu_torch.train.cli --config semantic3d \
+      --model dense_semantic3d --data-dir data/Semantic3D/sampled_train
+  python -m pointcloudsegmentation_tpu_torch.train.cli --config semantic3d \
+      --model context_semantic3d --data-dir data/Semantic3D/context_train
 
 ``--config modelnet40`` trains the ``gpn_modelnet40`` classifier: one
 label per cloud, and the metrics count clouds.  ``--model refine_s3dis``
 trains the refine cascade (loss refine + base, metrics of the refine
 row); ``--use-diffusion STEPS`` smooths a segmentation model's output
-probabilities over each point's neighbors.  It runs on the card
-(``--device cuda``) unless ``--device cpu`` is given, and raises where
-there is no card.  The JAX CLI's ``dense_semantic3d`` and
-``context_semantic3d`` readers and the device mesh (``--no-mesh``) are
-not ported yet (ROADMAP.md).
+probabilities over each point's neighbors (the dense and context models
+have no such tail and refuse it).  ``--model dense_semantic3d`` reads
+``semantic3d.save_blocks`` pkls (each block's grid-downsampled subset
+beside its dense cloud), or trains on synthetic dense batches;
+``--model context_semantic3d`` reads pkls of
+``semantic3d.prepare_context_scene`` blocks and has no synthetic data.
+It runs on the card (``--device cuda``) unless ``--device cpu`` is
+given, and raises where there is no card.  The JAX CLI's device mesh
+(``--no-mesh``) is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -35,11 +43,12 @@ import torch
 
 from .. import config as config_lib
 from ..config import CONFIGS, require_device
-from ..data import read_fn_for, toy
+from ..data import toy
 from ..data.provider import Provider
 from ..utils.logging import get_logger
 from .checkpoint import CheckpointManager
 from .loop import Trainer
+from .model_zoo import read_fn_for
 
 
 def parse_args(argv=None):
@@ -119,7 +128,8 @@ def _ablate(batch, mode):
 
 def make_batches(cfg, args, split: str, batch_size: int):
     """A callable giving epoch ``e``'s batches of ``split``: synthetic room
-    blocks (train seed 0, test seed 1, the same every epoch) or the
+    blocks, or synthetic dense batches for ``dense_semantic3d`` (train
+    seed 0, test seed 1, the same every epoch), or the
     Provider over the split's pkls.  The train Provider is seeded with the
     epoch number, so every epoch has its own file order, block shuffle and
     subsample (the JAX CLI seeds every epoch 0); the test Provider keeps
@@ -127,6 +137,19 @@ def make_batches(cfg, args, split: str, batch_size: int):
     d = cfg.data
     if args.synthetic or not args.data_dir:
         steps = args.steps_per_epoch or 50
+        if cfg.model == "context_semantic3d":
+            raise ValueError(
+                "context_semantic3d has no synthetic batches: give "
+                "--data-dir pkls of semantic3d.prepare_context_scene blocks "
+                "(each block's 50 m context cloud and context indices)")
+        if cfg.model == "dense_semantic3d":
+            return lambda epoch: (_ablate(b, args.ablate_feats)
+                                  for b in toy.dense_batches(
+                                      steps, batch_size,
+                                      num_points=d.num_points,
+                                      num_classes=d.num_classes,
+                                      feat_dim=max(d.feat_dim, 1),
+                                      seed=0 if split == "train" else 1))
         return lambda epoch: (_ablate(b, args.ablate_feats)
                               for b in toy.toy_batches(
                                   steps, batch_size, num_points=d.num_points,

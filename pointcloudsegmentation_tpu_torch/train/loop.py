@@ -16,6 +16,11 @@ counts where any of its points is valid).  The cascade's loss is the
 refine row's plus ``BASE_LOSS_WEIGHT`` times the base row's (JAX
 ``train/loop.py:443-455``); both rows share the labels and the mask, so
 the weights are counted once, and the metrics come from the refine row.
+A model with inputs beyond the block (the dense and context pipelines)
+names the batch fields it takes after (xyz, feats, mask) in
+``extra_keys``; each block passes them in that order, as the JAX
+trainer's branches on ``dense_xyz`` / ``ctx_xyz`` do
+(``train/loop.py:141-166, 193-214``).
 """
 from __future__ import annotations
 
@@ -248,11 +253,13 @@ class Trainer:
         cm = torch.zeros((c, c), dtype=torch.int64, device=self.device)
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
         count = torch.zeros_like(correct)
+        extra_keys = getattr(self.model, "extra_keys", ())
         with torch.set_grad_enabled(grad):
             for b in range(batch["xyz"].shape[0]):
                 logits = self.model(batch["xyz"][b], batch["feats"][b],
-                                    batch["mask"][b], train=train,
-                                    generator=gen)
+                                    batch["mask"][b],
+                                    *(batch[k][b] for k in extra_keys),
+                                    train=train, generator=gen)
                 labels, mask = batch["labels"][b], batch["mask"][b]
                 if logits.dim() == 1:
                     # one cloud: its logits, its label, and whether it has

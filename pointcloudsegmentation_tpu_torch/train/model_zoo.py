@@ -4,19 +4,28 @@ for its ``PointNetSegEncoder`` keys (``_ARCHS``), ``tiny_s3dis``, the ECD,
 PGNet and GPN segmentation nets, the PointNet++ baseline and the four
 ``template_*`` harness keys (``_ENCODERS``), the refine cascade
 ``refine_s3dis`` (``RefineCascadeModel``: [2, N, C] logits, refine row
-first), and the ModelNet40 classifier ``gpn_modelnet40``
+first), the ModelNet40 classifier ``gpn_modelnet40``
 (``_CLASSIFIERS``: unsorted pyramid + encoder + ``ClassifierHead`` -> one
-row of logits per cloud)."""
+row of logits per cloud), and Semantic3D's two pipelines with inputs
+beyond the block: ``dense_semantic3d`` (``DenseSegModel``: the dense
+cloud pooled onto the sampled points first) and ``context_semantic3d``
+(``models.context.ContextFusionModel``: a 50 m context cloud beside the
+block).  Such a model names the batch fields it takes after (xyz, feats,
+mask) in ``extra_keys``."""
 from __future__ import annotations
 
 from functools import partial
-from typing import Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
+from .. import data as data_lib
 from ..config import TrainConfig
+from ..data import semantic3d
+from ..models import dense as dense_lib
 from ..models import ecd, gpn, template
+from ..models.context import ContextFusionModel
 from ..models.layers import ProbsDiffusion, SegClassifier, init_glorot_
 from ..models.pointnet import (HEAD_DIM, S3DIS_ARCH,
                                S3DIS_BASELINE20_ARCH,
@@ -113,6 +122,37 @@ class SegmentationModel(nn.Module):
                                    nbr)
             logits = torch.log(probs.clamp(min=1e-12))
         return logits[morton.inverse_permutation(order)]
+
+
+class DenseSegModel(SegmentationModel):
+    """The dense pipeline (JAX ``train/model_zoo.py:145-183``):
+    ``DenseFeats`` (``dense_feats``) pools each sampled point's 16 nearest
+    dense points onto its features, before the Morton sort; then the
+    ``SegmentationModel`` pipeline on the enriched sampled points, without
+    a diffusion tail.  ``encoder`` takes ``dense.OUT_DIM`` pooled
+    columns before the block's ``feat_dim`` features."""
+
+    extra_keys = ("dense_xyz", "dense_feats", "dense_mask")
+
+    def __init__(self, encoder: nn.Module, num_classes: int,
+                 voxel_sizes: Tuple[float, ...], caps: Tuple[int, ...],
+                 block_size: float, dtype: Optional[torch.dtype] = None):
+        super().__init__(encoder, num_classes, voxel_sizes, caps,
+                         block_size, dtype=dtype)
+        self.dense_feats = dense_lib.DenseFeats(
+            encoder.feat_dim - dense_lib.OUT_DIM, dtype=dtype)
+
+    def forward(self, xyz: torch.Tensor, feats: torch.Tensor,
+                mask: torch.Tensor, dense_xyz: torch.Tensor,
+                dense_feats: torch.Tensor, dense_mask: torch.Tensor,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """xyz [N, 3], feats [N, F], mask [N] of the sampled points,
+        dense_xyz [Nd, 3], dense_feats [Nd, F], dense_mask [Nd] -> logits
+        [N, C]."""
+        feats = self.dense_feats(dense_xyz, dense_feats, dense_mask, xyz,
+                                 feats, mask)
+        return super().forward(xyz, feats, mask, train, generator)
 
 
 class RefineCascadeModel(nn.Module):
@@ -218,6 +258,57 @@ _CASCADES = {"refine_s3dis": partial(ecd.ECDSegModel,
 # as the _ENCODERS are
 _CLASSIFIERS = {"gpn_modelnet40": gpn.GPNClassModel}
 
+def _dense_encoder(feat_dim: int, arch: Arch = SEMANTIC3D_DILATE_ARCH,
+                   dtype: Optional[torch.dtype] = None,
+                   **encoder_kw) -> PointNetSegEncoder:
+    """The dense model's encoder (JAX train/model_zoo.py:353-358) on the
+    pooled dense descriptor before the block's features: the JAX build
+    passes search_chunk only, so the flax defaults hold, per-point
+    overflow slots and the unfactored head."""
+    return PointNetSegEncoder(dense_lib.OUT_DIM + feat_dim, arch=arch,
+                              head_dim=None, ov_pool_size=0, dtype=dtype,
+                              **encoder_kw)
+
+
+class _Pipeline(NamedTuple):
+    """A model with inputs beyond the block: its ``encoder``, called as
+    (feat_dim, dtype=, **encoder_kw); its ``model``, called as (encoder,
+    num_classes, voxel_sizes, caps, block_size, dtype=), without a
+    diffusion tail; and ``blocks_fn``, its read of loaded pkls of prepared
+    blocks, (split, loaded pkl) -> block dicts."""
+    encoder: Callable[..., nn.Module]
+    model: Callable[..., nn.Module]
+    blocks_fn: Callable[..., List[Dict]]
+
+
+# Semantic3D's two pipelines (JAX train/model_zoo.py:353-376, their reads
+# as the JAX CLI picks them, train/cli.py:113-124)
+_PIPELINES = {
+    "dense_semantic3d": _Pipeline(_dense_encoder, DenseSegModel,
+                                  semantic3d.dense_blocks_from_list),
+    "context_semantic3d": _Pipeline(
+        partial(ecd.ECDSegModel, specs=ecd.S3DIS_ECD_SPEC),
+        ContextFusionModel, semantic3d.context_blocks_from_list),
+}
+
+
+def blocks_fn_for(cfg: TrainConfig, config_name: str):
+    """(split, loaded pkl) -> block dicts for ``cfg.model``: a pipeline's
+    own read of its prepared blocks, else the config's dataset read
+    (``data.blocks_fn_for``)."""
+    if cfg.model in _PIPELINES:
+        return _PIPELINES[cfg.model].blocks_fn
+    return data_lib.blocks_fn_for(cfg, config_name)
+
+
+def read_fn_for(cfg: TrainConfig, config_name: str):
+    """The Provider read_fn (split, pkl path) -> block dicts for
+    ``cfg.model``: a pipeline's own read of its prepared pkls, else the
+    config's dataset read (``data.read_fn_for``)."""
+    if cfg.model in _PIPELINES:
+        return data_lib.pkl_read_fn(_PIPELINES[cfg.model].blocks_fn)
+    return data_lib.read_fn_for(cfg, config_name)
+
 
 def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
                 device="cuda", **encoder_kw) -> nn.Module:
@@ -228,16 +319,22 @@ def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
     sphere k-means and ``ProbsDiffusion``'s ``alpha`` at 0 either way.
     The model lives on ``device``: the card unless the caller asks for the
     CPU.  ``encoder_kw`` override PointNetSegEncoder settings (win_tile,
-    win_window, search_chunk); the other encoders take ``search_chunk``
-    only, the one setting the JAX build passes them.  A ``_CLASSIFIERS``
-    key gives a ``ClassificationModel``, ``refine_s3dis`` a
-    ``RefineCascadeModel``, any other a ``SegmentationModel`` with
-    ``cfg.diffusion_steps``.  The head is factored (head_dim 512,
-    premixed) only for a PointNetSegEncoder whose decoder is not the
+    win_window, search_chunk), also for ``dense_semantic3d``; the other
+    encoders take ``search_chunk`` only, the one setting the JAX build
+    passes them.  A ``_PIPELINES`` key gives its model
+    (``dense_semantic3d`` a ``DenseSegModel`` over the unfactored
+    ``SEMANTIC3D_DILATE_ARCH`` encoder with per-point overflow slots,
+    ``context_semantic3d`` a ``ContextFusionModel`` with the config's
+    voxel sizes, caps and block size), a ``_CLASSIFIERS`` key a
+    ``ClassificationModel``, ``refine_s3dis`` a ``RefineCascadeModel``,
+    any other a ``SegmentationModel`` with ``cfg.diffusion_steps``.  The
+    head is factored (head_dim 512, premixed) only for a
+    PointNetSegEncoder of an ``_ARCHS`` key whose decoder is not the
     deconv, as the JAX build_model factors it (train/model_zoo.py:
-    346-353)."""
+    346-353).  ``cfg.diffusion_steps`` on a ``_PIPELINES`` key (no
+    diffusion tail; the JAX build ignores it) raises."""
     others = {**_ENCODERS, **_CASCADES, **_CLASSIFIERS}
-    known = {**_ARCHS, **others}
+    known = {**_ARCHS, **_PIPELINES, **others}
     if cfg.model not in known:
         raise KeyError(f"unknown model '{cfg.model}'; ported: "
                        f"{sorted(known)}")
@@ -245,6 +342,15 @@ def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
         raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
     dtype = _DTYPES[cfg.compute_dtype]
     d = cfg.data
+    if cfg.model in _PIPELINES:
+        if cfg.diffusion_steps:
+            raise ValueError(f"{cfg.model} has no diffusion tail "
+                             "(--use-diffusion)")
+        p = _PIPELINES[cfg.model]
+        model = p.model(p.encoder(d.feat_dim, dtype=dtype, **encoder_kw),
+                        d.num_classes, d.voxel_sizes, d.caps, d.block_size,
+                        dtype=dtype)
+        return _place(model, generator, device)
     if cfg.model in others:
         extra = set(encoder_kw) - {"search_chunk"}
         if extra:
@@ -265,6 +371,11 @@ def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
     else:
         model = SegmentationModel(*common, dtype=dtype,
                                   diffusion_steps=cfg.diffusion_steps)
+    return _place(model, generator, device)
+
+
+def _place(model: nn.Module, generator: Optional[torch.Generator],
+           device) -> nn.Module:
     if generator is not None:
         init_glorot_(model, generator)
     return model.to(device)

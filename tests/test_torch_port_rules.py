@@ -58,7 +58,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "data.semantic3d", "data.synth_rooms", "data.provider",
                  "utils.logging", "models.ecd", "models.variants",
                  "models.gpn", "ops.anchors", "data.modelnet",
-                 "models.template"):
+                 "models.template", "models.dense", "models.context",
+                 "data.synth_outdoor"):
         assert f"'pointcloudsegmentation_tpu_torch.{name}'" in walked, name
 
 
