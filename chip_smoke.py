@@ -162,6 +162,29 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    whose rows sum to 1; (e) K2 bit for bit and K3 under phase 6's rules at
    each gather shape of the two models (the conv gathers at 10,240, 5120
    and 1280 rows), timed as in phases 3 and 6.
+15. a whole Semantic3D scan from raw file to submission, through the
+   entry points a user calls, at ``semantic3d_config``'s full width: the
+   seeded outdoor scan (482,196 points) written as a ``.txt`` +
+   ``.labels`` pair; (a) ``prepare_data`` modes ``semantic3d``,
+   ``semantic3d_context`` and ``semantic3d_test --rotations 2`` with 2
+   workers, each mode's host seconds; (b) the train CLI trains
+   ``pointnet_semantic3d``, ``dense_semantic3d`` (on the ``semantic3d``
+   pkl) and ``context_semantic3d`` (on the ``semantic3d_context`` pkl) one
+   epoch each, writing checkpoints, K2 and K3 as the launch helpers count
+   them per training and test block; (c) each key's float32 logits on one
+   test block (with its dense cloud or context window) agree card vs CPU
+   on at least 0.999 of the valid points' argmax; (d) the scene eval
+   labels the scan: ``pointnet_semantic3d`` with ``--rot-ensemble 2`` (K2
+   per block of each arm's own count), the other two keys one arm each,
+   every ``.labels`` file 482,196 lines in 1..8, probabilities finite with
+   rows summing to 1, dense points/s; (e) on arm 0 of the restored
+   ``pointnet_semantic3d``: a repeated sweep is bitwise equal, and the
+   device interpolation arm against the native one over every scan point:
+   argmax agreement on at least 0.999 of them and the probabilities
+   within 1e-3 (the blocks overlap, so the support holds copies of one
+   point an ulp apart with other probabilities: the device arm ranks them
+   by the native library's rounding of the distances); both arms' seconds
+   and the device arm's peak memory.
 
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
@@ -210,6 +233,13 @@ S3D_PIPELINE_KEYS = ("dense_semantic3d", "context_semantic3d")
 # from Glorot weights at lr 1e-3 Adam's early steps overshoot on one batch
 # (each key's loss rises at one of its first 4 steps), so 8 let the trend show
 S3D_PIPELINE_STEPS = 8
+# phase 15: a Semantic3D scan from raw file to submission
+SCAN_KEYS = ("pointnet_semantic3d", "dense_semantic3d", "context_semantic3d")
+SCAN_ROTATIONS = 2          # rotated arms of pointnet_semantic3d's ensemble
+SCAN_WORKERS = 2            # prep processes
+SCAN_KNN = 6                # the scene eval's k (its default)
+INTERP_ARGMAX_MIN = 0.999   # device vs native interpolation over every scan
+INTERP_PROB_TOL = 1e-3      # point: argmax agreement and largest |dp|
 ECD_TIMED_STEPS = 3         # training steps timed after the counted first
 DSLAB_F32_RTOL = 1e-6       # slab-gradient kernel vs plain, float32
 GRAD_COSINE_MIN = 0.999     # flat gradient, float32 card vs CPU
@@ -2527,6 +2557,226 @@ def phase_semantic3d(card):
     return total, k2_rows, k3_rows, records
 
 
+def scan_per_block(cfg):
+    """Kernel launches per block of a forward and of a training step of a
+    phase-15 key."""
+    if cfg.model == "dense_semantic3d":
+        return gathers_per_block(cfg, dense_gathers)
+    if cfg.model == "context_semantic3d":
+        return gathers_per_block(cfg, context_gathers)
+    return per_block(cfg)
+
+
+def interp_arms(sxyz, probs, qxyz, card):
+    """Arm 0's probabilities interpolated onto the scan by the native
+    library and by the device arm, with both arms' seconds and the device
+    arm's peak memory.  The blocks overlap, so the support holds copies of
+    one point an ulp apart with other probabilities; the device arm ranks
+    by the native library's rounding of the distances (``knn_exact``), so
+    over every scan point the argmax must agree and the probabilities
+    match.  Returns a record of the comparison."""
+    import numpy as np
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.eval.interpolate import (
+        SEMANTIC3D_RATIO, interpolate_to_dense)
+
+    t0 = time.perf_counter()
+    host = interpolate_to_dense(sxyz, probs, qxyz, k=SCAN_KNN,
+                                ratio=SEMANTIC3D_RATIO)
+    host_s = time.perf_counter() - t0
+    s_d, p_d, q_d = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                     for a in (sxyz, probs, qxyz))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    dev = interpolate_to_dense(s_d, p_d, q_d, k=SCAN_KNN,
+                               ratio=SEMANTIC3D_RATIO, prefer_native=False)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    dev = dev.cpu().numpy()
+    dp = np.abs(host - dev).max(1)
+    rec = dict(points=len(qxyz), support=len(sxyz), native_s=host_s,
+               device_s=dev_s, device_peak_gib=peak,
+               argmax=float((host.argmax(1) == dev.argmax(1)).mean()),
+               max_dp=float(dp.max()),
+               over_tol=int((dp > INTERP_PROB_TOL).sum()))
+    log(f"[scan] interpolation of arm 0 ({len(sxyz)} support -> "
+        f"{len(qxyz)} scan points, k {SCAN_KNN}): native {host_s:.3f} s, "
+        f"device {dev_s:.3f} s (peak {peak:.3f} GiB above its inputs) "
+        f"[{card}]; over every scan point argmax agreement "
+        f"{rec['argmax']:.6f} (need >= {INTERP_ARGMAX_MIN}), max |dp| "
+        f"{rec['max_dp']:.3e} (need <= {INTERP_PROB_TOL}; "
+        f"{rec['over_tol']} points above it)")
+    check(rec["argmax"] >= INTERP_ARGMAX_MIN,
+          f"interpolation argmax {rec['argmax']}")
+    check(rec["max_dp"] <= INTERP_PROB_TOL,
+          f"interpolation probabilities {rec['max_dp']}")
+    return rec
+
+
+def phase_scan(card):
+    """15: a Semantic3D scan from raw file to submission through the
+    entry points, at full width (see the module docstring).  Returns
+    (launches, records)."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pointcloudsegmentation_tpu_torch import interpolate, prepare_data
+    from pointcloudsegmentation_tpu_torch.config import semantic3d_config
+    from pointcloudsegmentation_tpu_torch.data import io_util, semantic3d
+    from pointcloudsegmentation_tpu_torch.data.synth_outdoor import \
+        outdoor_scan
+    from pointcloudsegmentation_tpu_torch.eval.interpolate import \
+        eval_scene_probs
+    from pointcloudsegmentation_tpu_torch.train import cli
+    from pointcloudsegmentation_tpu_torch.train.checkpoint import \
+        CheckpointManager
+    from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    total = {"window_gather": 0, "window_dslab": 0, "window_dslab_map": 0}
+    records = {"prep_s": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scan_")
+    try:
+        points, labels = outdoor_scan(0)
+        n = len(points)
+        t0 = time.perf_counter()
+        semantic3d.write_points_txt(os.path.join(tmp, "raw", "scan0.txt"),
+                                    points, labels)
+        log(f"[scan] wrote the seeded scan ({n} points) as scan0.txt + "
+            f".labels in {time.perf_counter() - t0:.2f} s")
+        # (a) the prep, three modes
+        dirs = {"semantic3d": os.path.join(tmp, "blocks"),
+                "semantic3d_context": os.path.join(tmp, "ctx"),
+                "semantic3d_test": os.path.join(tmp, "sem3d")}
+        for mode, out in dirs.items():
+            extra = ["--rotations", str(SCAN_ROTATIONS)] \
+                if mode == "semantic3d_test" else []
+            t0 = time.perf_counter()
+            (path, count), = prepare_data.main(
+                [mode, "--raw-dir", os.path.join(tmp, "raw"), "--out-dir",
+                 out, "--workers", str(SCAN_WORKERS)] + extra)
+            secs = time.perf_counter() - t0
+            records["prep_s"][mode] = secs
+            log(f"[scan] prepare_data {' '.join([mode] + extra)} --workers "
+                f"{SCAN_WORKERS}: {count} blocks in {secs:.2f} s of host "
+                f"time")
+        test = os.path.join(dirs["semantic3d_test"], "test")
+        arm_dirs = [test] + [f"{test}_{ri}"
+                             for ri in range(1, SCAN_ROTATIONS + 1)]
+        arm_blocks = [len(io_util.read_pkl(os.path.join(d, "scan0.pkl"))
+                          ["xyzs"]) for d in arm_dirs]
+        log(f"[scan] eval blocks per rotation arm: {arm_blocks}")
+        for key in SCAN_KEYS:
+            cfg = semantic3d_config(model=key)
+            fwd, step = scan_per_block(cfg)
+            rec = records.setdefault(key, {})
+            # (b) the train CLI, one epoch, with a checkpoint
+            data_dir = dirs["semantic3d_context" if key ==
+                            "context_semantic3d" else "semantic3d"]
+            nblk = len(io_util.read_pkl(os.path.join(data_dir,
+                                                     "scan0.pkl")))
+            padded = -(-nblk // TRAIN_BLOCKS) * TRAIN_BLOCKS
+            ck = os.path.join(tmp, "ck", key)
+            _, counts, secs = run_path(
+                f"train CLI {key} on the prepared scan ({nblk} blocks, "
+                f"batches of {TRAIN_BLOCKS}; train and test epoch)",
+                lambda: cli.main([
+                    "--config", "semantic3d", "--model", key, "--data-dir",
+                    data_dir, "--epochs", "1", "--batch-size",
+                    str(TRAIN_BLOCKS), "--checkpoint-dir", ck,
+                    "--metrics-file", os.path.join(tmp, f"{key}.jsonl")]),
+                plus(times(step, padded), times(fwd, padded)))
+            total = plus(total, counts)
+            crec, = read_records(os.path.join(tmp, f"{key}.jsonl"))
+            check(math.isfinite(crec["train_loss"])
+                  and os.path.exists(os.path.join(ck, "epoch_000000.pt")),
+                  f"{key} CLI record {crec}")
+            rec.update(train_blocks=nblk, train_s=secs,
+                       train_loss=crec["train_loss"])
+            # (c) float32 card vs CPU on arm 0's first test block
+            block = interpolate.load_blocks(
+                os.path.join(test, "scan0.pkl"), cfg, "semantic3d",
+                np.random.RandomState(0),
+                getattr(build_model(cfg, None, "cpu"), "extra_keys", ()))[0]
+            rec["f32"] = f32_parity(cfg, block, card, f"{key} test block")
+            # (d) the scene eval, to .labels
+            arms = SCAN_ROTATIONS if key == "pointnet_semantic3d" else 0
+            out = os.path.join(tmp, "out", key)
+            (r,), counts, secs = run_path(
+                f"scene eval {key} --rot-ensemble {arms} --labels-out "
+                f"({arm_blocks[:arms + 1]} blocks)",
+                lambda: interpolate.main([
+                    "--config", "semantic3d", "--model", key,
+                    "--checkpoint-dir", ck, "--scene-dir", test,
+                    "--rot-ensemble", str(arms), "--labels-out",
+                    "--out-dir", out]),
+                times(fwd, sum(arm_blocks[:arms + 1])))
+            total = plus(total, counts)
+            with open(os.path.join(out, "scan0.labels")) as f:
+                written = np.array([int(x) for x in f.read().split()])
+            probs = r["probs"]
+            dev = float(np.abs(probs.sum(1) - 1.0).max())
+            check(len(written) == n and written.min() >= 1
+                  and written.max() <= 8,
+                  f"{key}: {len(written)} labels in [{written.min()}, "
+                  f"{written.max()}] for {n} scan points")
+            check(probs.shape == (n, 8) and np.isfinite(probs).all()
+                  and dev <= PROB_SUM_TOL,
+                  f"{key} probs {probs.shape}, rows sum to 1 +- {dev}")
+            check(np.array_equal(written, probs.argmax(1) + 1),
+                  f"{key}: the labels are not the probabilities' argmax")
+            pps = n / r["seconds"]
+            hist = np.bincount(written, minlength=9)[1:].tolist()
+            log(f"[scan] scene eval {key}: {len(written)} labels in 1..8 "
+                f"(counts {hist}), probs rows sum to 1 +- {dev:.2e}, mIoU "
+                f"{None if r['res'] is None else r['res']['miou']}; "
+                f"{r['seconds']:.3f} s for {arms + 1} arm(s) (sweep + "
+                f"interpolation): {pps:.1f} dense points/s; {secs:.2f} s "
+                f"with restore and reads [{card}]")
+            rec.update(arms=arms + 1, eval_s=r["seconds"],
+                       dense_points_per_sec=pps, eval_total_s=secs)
+        # (e) arm 0 of the restored pointnet_semantic3d
+        cfg = semantic3d_config()
+        fwd, _ = scan_per_block(cfg)
+        trainer = Trainer(cfg, device="cuda")
+        ckpt = CheckpointManager(os.path.join(tmp, "ck", cfg.model))
+        model = trainer.bind(trainer.init_state(
+            state=ckpt.restore(device="cuda"))).eval()
+        ckpt.close()
+        data = io_util.read_pkl(os.path.join(test, "scan0.pkl"))
+        blocks = interpolate.read_scene(data, cfg, "semantic3d",
+                                        np.random.RandomState(0))
+        sweeps = []
+        for i in range(2):
+            out, counts, _ = run_path(
+                f"arm 0 sweep {i + 1} of pointnet_semantic3d "
+                f"({len(blocks)} blocks)",
+                lambda: eval_scene_probs(model, blocks), times(fwd,
+                                                               len(blocks)))
+            total = plus(total, counts)
+            sweeps.append(out)
+        check(np.array_equal(sweeps[0][0], sweeps[1][0])
+              and np.array_equal(sweeps[0][1], sweeps[1][1]),
+              "two sweeps of arm 0 differ")
+        log("[scan] two sweeps of arm 0: points and probabilities bitwise "
+            "equal")
+        records["interp"] = interp_arms(*sweeps[0], data["scan_xyz"], card)
+        del model, trainer
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[scan] records: {json.dumps(records)}")
+    return total, records
+
+
 def main() -> int:
     try:
         import torch
@@ -2593,6 +2843,10 @@ def main() -> int:
     rows += k2_s3d
     drows += k3_s3d
     entry_launches = plus(entry_launches, s3d_launches)
+    t15 = time.perf_counter()
+    scan_launches, _ = phase_scan(card)
+    log(f"[scan] phase 15 in {time.perf_counter() - t15:.1f} s")
+    entry_launches = plus(entry_launches, scan_launches)
 
     main_row = next(r for r in rows if r["name"].endswith("conv"))
     dmain, fmain = drows[0], frows[0]
@@ -2604,8 +2858,9 @@ def main() -> int:
         f"alone in its own row) and {fmain['name']} "
         f"{fmain['dtype']} (fused conv); launches are the serve sweep's plus "
         f"one training step's, the entry points', the PointNet family's, "
-        f"the ECD family's, the GPN family's, the composite models' and "
-        f"the Semantic3D pipelines', and the fused-conv bench's; eval "
+        f"the ECD family's, the GPN family's, the composite models', the "
+        f"Semantic3D pipelines' and the Semantic3D scan's, and the "
+        f"fused-conv bench's; eval "
         f"{pps:.1f} "
         f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "
         f"GiB")

@@ -22,8 +22,10 @@ Rules the port keeps:
 Ported so far: ``pointnet_s3dis`` (the flagship) and ``pointnet_scannet``
 with their inference path (block sweep, softmax, dense interpolation) and
 training step (``train/loop.py``), the data pipeline, and the user entry
-points: ``python -m pointcloudsegmentation_tpu_torch.train.cli`` trains and
-evaluates, ``... .interpolate`` labels prepared scenes, ``... .parity_ab``
+points: ``python -m pointcloudsegmentation_tpu_torch.prepare_data``
+prepares datasets offline, ``... .train.cli`` trains and evaluates,
+``... .interpolate`` labels prepared scenes (Semantic3D scans down to
+their ``.labels`` submission), ``... .parity_ab``
 records a training curve on synthetic rooms, ``... .profile_train``
 profiles the training step on the card; plus the fused window-conv kernel
 with its microbench (``... .bench_fused_conv --level 0``).  See ROADMAP.md

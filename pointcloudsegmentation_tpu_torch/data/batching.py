@@ -95,6 +95,30 @@ def pad_context(ctx_xyz: np.ndarray, ctx_feats: np.ndarray,
             "ctx_idx": np.asarray(ctx_idx, np.int32)}
 
 
+def pad_fields(b: Dict, num_points: int, dense_num_points: int,
+               ctx_num_points: int,
+               rng: Optional[np.random.RandomState] = None) -> Dict:
+    """One block dict padded to static shapes with every field it has:
+    the block's points (``pad_block``, carrying ``ctx_idx`` through the
+    subsample), the context cloud to ``ctx_num_points`` (``pad_context``)
+    and the dense cloud to ``dense_num_points`` (``dense_mask``).  The rng
+    draws come in the JAX Provider's order: the block's subsample, then the
+    dense cloud's."""
+    pb = pad_block(b["xyz"], b.get("feats"), b.get("labels"), num_points,
+                   rng, point_fields={"ctx_idx": b["ctx_idx"]}
+                   if "ctx_idx" in b else None)
+    if "ctx_xyz" in b:
+        pb.update(pad_context(b["ctx_xyz"], b["ctx_feats"],
+                              pb.pop("ctx_idx"), ctx_num_points, pb["xyz"]))
+    if "dense_xyz" in b:
+        dp = pad_block(b["dense_xyz"], b["dense_feats"], None,
+                       dense_num_points, rng)
+        pb["dense_xyz"] = dp["xyz"]
+        pb["dense_feats"] = dp["feats"]
+        pb["dense_mask"] = dp["mask"]
+    return pb
+
+
 def stack_blocks(blocks: List[Dict], batch_size: Optional[int] = None,
                  rng: Optional[np.random.RandomState] = None,
                  pad_masked: bool = False) -> Dict:

@@ -25,9 +25,11 @@ import numpy as np
 import torch
 
 from ..models.context import CTX_CAP
-from .batching import pad_block, pad_context, stack_blocks
+from .batching import pad_fields, stack_blocks
 
 _STOP = object()
+# the dense cloud's static capacity, in block point budgets
+DENSE_FACTOR = 4
 
 
 class _Failed:
@@ -53,8 +55,9 @@ class Provider:
         self.read_fn = read_fn
         self.num_points = num_points
         # static capacity for the dense cloud of dense-pipeline blocks
-        # (read_fns yielding dense_xyz/dense_feats); 0 = 4x num_points
-        self.dense_num_points = dense_num_points or 4 * num_points
+        # (read_fns yielding dense_xyz/dense_feats); 0 = DENSE_FACTOR x
+        # num_points
+        self.dense_num_points = dense_num_points or DENSE_FACTOR * num_points
         # static capacity for context sub-clouds (read_fns yielding ctx_*):
         # the context model's cap, 512, covers a 50 m window at 5 m voxels
         # with z slack
@@ -97,23 +100,9 @@ class Provider:
             self._q.put(_STOP)
 
     def _pad(self, b: Dict) -> Dict:
-        """One block padded to the static shapes, its rng draws in the JAX
-        Provider's order: the block's subsample, then the dense cloud's."""
-        pb = pad_block(b["xyz"], b.get("feats"), b.get("labels"),
-                       self.num_points, self.rng,
-                       point_fields={"ctx_idx": b["ctx_idx"]}
-                       if "ctx_idx" in b else None)
-        if "ctx_xyz" in b:
-            pb.update(pad_context(b["ctx_xyz"], b["ctx_feats"],
-                                  pb.pop("ctx_idx"), self.ctx_num_points,
-                                  pb["xyz"]))
-        if "dense_xyz" in b:
-            dp = pad_block(b["dense_xyz"], b["dense_feats"], None,
-                           self.dense_num_points, self.rng)
-            pb["dense_xyz"] = dp["xyz"]
-            pb["dense_feats"] = dp["feats"]
-            pb["dense_mask"] = dp["mask"]
-        return pb
+        """One block padded to the static shapes (``pad_fields``)."""
+        return pad_fields(b, self.num_points, self.dense_num_points,
+                          self.ctx_num_points, self.rng)
 
     # -- consumer ---------------------------------------------------------
     def __iter__(self) -> Iterator[Dict]:

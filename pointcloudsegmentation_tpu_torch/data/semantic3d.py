@@ -14,7 +14,16 @@ with its 50 m context cloud and per-point context indices
 (``prepare_context_scene``, read by ``context_blocks_from_list``).  Labels
 stay raw: 0 = unlabeled, 1..8 the 8 classes; the port's
 ``semantic3d_config`` ignores label 0 and shifts the rest by -1
-(ROADMAP.md §3)."""
+(ROADMAP.md §3).
+
+Test scans go another way (``presample_test_blocks``,
+``process_test_blocks``, ``save_eval_scene``): 50 m macro blocks at a
+0.03 m downsample, cut without augmentation into 10 m eval blocks at a
+2.5 m stride, optionally after a z-rotation of the whole scan (the
+rotation ensemble's arms), written as one columnar scene pkl per scan and
+arm that the scene eval reads back with ``eval_scene_blocks``.  The
+per-scan z-offset map (``write_offset_z_map``) is written by the prep and
+read by nothing."""
 from __future__ import annotations
 
 import os
@@ -26,6 +35,7 @@ from . import augment, native
 from .io_util import save_pkl
 
 NUM_CLASSES = 8  # man-made terrain .. cars (class 0 = unlabeled, ignored)
+ROT_STEP = np.pi / 12.0  # the angle between two arms of the rotation ensemble
 
 
 def read_points_txt(path: str, labels_path: Optional[str] = None
@@ -39,6 +49,18 @@ def read_points_txt(path: str, labels_path: Optional[str] = None
     if labels_path and os.path.exists(labels_path):
         labels = np.loadtxt(labels_path, dtype=np.int32)
     return pts, labels
+
+
+def write_points_txt(path: str, points: np.ndarray,
+                     labels: Optional[np.ndarray] = None) -> None:
+    """Write a scan in Semantic3D's raw layout, the inverse of
+    ``read_points_txt``: x y z in mm-rounded metres, then intensity and
+    r g b as integers, one point per line; with ``labels`` also the
+    ``.labels`` file beside it, one label per line."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savetxt(path, points, fmt="%.3f %.3f %.3f %d %d %d %d")
+    if labels is not None:
+        np.savetxt(os.path.splitext(path)[0] + ".labels", labels, fmt="%d")
 
 
 def to_big_blocks(points: np.ndarray, labels: Optional[np.ndarray],
@@ -102,6 +124,136 @@ def sample_training_blocks(points: np.ndarray, labels: np.ndarray,
         blocks.append({"xyz": (x - mn).astype(np.float32), "feats": feats,
                        "labels": lbl_s[c].astype(np.int32),
                        "block_min": mn[0].astype(np.float32)})
+    return blocks
+
+
+def compute_offset_z(points: np.ndarray, bin_size: float = 0.1,
+                     z_range: float = 20.0) -> float:
+    """Dominant ground-plane height of a scan: the mode of the z histogram
+    (0.1 m bins over 20 m) plus the minimum z
+    (semantic3d_sample_trainset_offset_z, semantic3d_util.py:10-55)."""
+    zs = points[:, 2].astype(np.float64)
+    min_z = zs.min()
+    hist, _ = np.histogram(zs - min_z, np.arange(0.0, z_range, bin_size))
+    return float(np.argmax(hist) * bin_size + min_z)
+
+
+def write_offset_z_map(path: str, stem_points) -> Dict[str, float]:
+    """Write the per-scan z-offset map, one ``stem offset`` line per scan
+    (cached/semantic3d_train_offsetz.txt, semantic3d_util.py:18-46).
+    ``stem_points``: iterable of (stem, points [n, >=3])."""
+    out = {}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        for stem, pts in stem_points:
+            off = compute_offset_z(np.asarray(pts))
+            out[stem] = off
+            f.write(f"{stem} {off}\n")
+    return out
+
+
+def read_offset_z_map(path: str) -> Dict[str, float]:
+    """semantic3d_read_map_offset_z (semantic3d_util.py:49-58)."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            stem, off = line.strip().split(" ")
+            out[stem] = float(off)
+    return out
+
+
+def presample_test_blocks(points: np.ndarray,
+                          block_size: float = 50.0, stride: float = 45.0,
+                          ds_stride: float = 0.03, min_pn: int = 128
+                          ) -> List[np.ndarray]:
+    """Test-set presample: overlapping 50 m macro blocks of the scan at a
+    0.03 m downsample, no augmentation
+    (semantic3d_testset_presample_block, semantic3d_util.py:466-481).
+    Returns [n, 7] point arrays (x y z i r g b, absolute coordinates)."""
+    xyz = np.ascontiguousarray(points[:, :3], np.float32)
+    keep = augment.grid_downsample(xyz, ds_stride)
+    pts = points[keep]
+    rel = pts[:, :3] - pts[:, :3].min(0, keepdims=True)
+    crops = augment.uniform_sample_block(rel, block_size, stride,
+                                         min_pn=min_pn)
+    return [pts[c] for c in crops]
+
+
+def process_test_blocks(points: np.ndarray, rot_ang: float = 0.0,
+                        block_size: float = 10.0, stride: float = 2.5,
+                        ds_stride: float = 0.06,
+                        covar_nn_size: float = 0.3,
+                        min_pn: int = 128) -> List[Dict]:
+    """Deterministic 10 m eval blocks of one presampled macro block, after
+    an optional z-rotation of its absolute coordinates by ``rot_ang`` (the
+    rotation ensemble's arms, k·pi/12;
+    semantic3d_process_test_block[_with_rotate], semantic3d_util.py:
+    483-557).  No flips, rescale or jitter; labels are zeros; each block's
+    ``block_min`` places it in the (rotated) absolute frame."""
+    pts = np.asarray(points, np.float32)
+    if rot_ang != 0.0:
+        pts = pts.copy()
+        pts[:, :3] = augment.rotate_z(
+            np.ascontiguousarray(pts[:, :3]), rot_ang)
+    return sample_training_blocks(pts, np.zeros(len(pts), np.int32),
+                                  block_size=block_size, stride=stride,
+                                  ds_stride=ds_stride, min_pn=min_pn,
+                                  rng=np.random.RandomState(0),
+                                  rotate=False,
+                                  covar_nn_size=covar_nn_size)
+
+
+def save_eval_scene(path: str, blocks: List[Dict], ctx_cloud: np.ndarray,
+                    scan_xyz: Optional[np.ndarray] = None,
+                    scan_labels: Optional[np.ndarray] = None) -> None:
+    """Write one scan's eval scene for one rotation arm: a pkl of a dict
+    of columns, the JAX package's four (the reference's ``test_block_avg``
+    layout, interpolate_semantic3d_new.py:68-90) and the port's
+    ``ctx_cloud``; arm 0 (the unrotated arm, ``scan_xyz`` given) also holds
+    the scan's own points and labels, once per scan:
+
+    - ``xyzs``: per block, its points [n, 3] float32 relative to its min;
+    - ``rgbs``: per block, its features [n, 4 + 9] float32 (rgb in
+      [-1, 1], standardised intensity, covariances), under the JAX name;
+    - ``lbls``: per block, int32 [n] zeros (test blocks carry no labels);
+    - ``block_mins``: per block, float32 [3], its place in the arm's
+      rotated absolute frame;
+    - ``ctx_cloud``: [m, 7] float32, ``context_cloud`` (5 m) of the whole
+      scan rotated by the arm's angle, in the arm's absolute frame: the
+      context model's 50 m windows are cut from it per block
+      (``eval_scene_blocks``);
+    - arm 0 only, ``scan_xyz``: the scan's full-resolution xyz [N, 3]
+      float32, in file order, in the original frame: the points a
+      submission labels;
+    - arm 0 only, ``scan_labels``: int32 [N], the scan's ``.labels`` where
+      the file exists, else zeros (unlabeled: nothing is scored)."""
+    data = {"xyzs": [b["xyz"] for b in blocks],
+            "rgbs": [b["feats"] for b in blocks],
+            "lbls": [b["labels"] for b in blocks],
+            "block_mins": [b["block_min"] for b in blocks],
+            "ctx_cloud": np.asarray(ctx_cloud, np.float32)}
+    if scan_xyz is not None:
+        data["scan_xyz"] = np.ascontiguousarray(scan_xyz, np.float32)
+        data["scan_labels"] = np.asarray(scan_labels, np.int32)
+    save_pkl(path, data)
+
+
+def eval_scene_blocks(data: Dict, context: bool = False,
+                      ctx_block: float = 50.0) -> List[Dict]:
+    """A loaded ``save_eval_scene`` pkl -> block dicts (xyz, feats,
+    labels, block_min) in the layout of ``save_blocks``, for a model's
+    read of prepared blocks; with ``context``, each block also gets its
+    window of the scene's ``ctx_cloud`` as ``prepare_context_scene`` cuts
+    it (``context_window``)."""
+    blocks = [{"xyz": x, "feats": f, "labels": l,
+               "block_min": np.asarray(m, np.float32)}
+              for x, f, l, m in zip(data["xyzs"], data["rgbs"], data["lbls"],
+                                    data["block_mins"])]
+    if context:
+        ctx_abs, ctx_feats = context_features(data["ctx_cloud"])
+        for b in blocks:
+            b["ctx_xyz"], b["ctx_feats"], b["ctx_idx"] = context_window(
+                b["xyz"], b["block_min"], ctx_abs, ctx_feats, ctx_block)
     return blocks
 
 
@@ -205,25 +357,39 @@ def prepare_context_scene(points: np.ndarray, labels: np.ndarray,
                                     stride=stride, ds_stride=ds_stride,
                                     min_pn=min_pn, rng=rng, rotate=False,
                                     covar_nn_size=covar_nn_size)
-    ctx = context_cloud(pts, ctx_ds)            # [m, 7] mean x y z i r g b
-    ctx_abs = ctx[:, :3]
+    ctx_abs, ctx_feats = context_features(context_cloud(pts, ctx_ds))
+    for b in blocks:
+        b["ctx_xyz"], b["ctx_feats"], b["ctx_idx"] = context_window(
+            b["xyz"], b["block_min"], ctx_abs, ctx_feats, ctx_block)
+    return blocks
+
+
+def context_features(ctx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """A ``context_cloud`` [m, 7] -> (absolute xyz [m, 3], features [m, 4]:
+    rgb in [-1, 1] and the intensity standardised over the cloud)."""
     it = ctx[:, 3:4]
     it = (it - it.mean()) / (it.std() + 1e-6)
-    ctx_feats_all = np.concatenate([ctx[:, 4:7] / 127.5 - 1.0, it],
-                                   1).astype(np.float32)
-    for b in blocks:
-        mn = b["block_min"]
-        rel = ctx_abs - mn[None, :]
-        sel = (np.abs(rel[:, 0]) <= ctx_block / 2.0) \
-            & (np.abs(rel[:, 1]) <= ctx_block / 2.0)
-        if not sel.any():                        # degenerate scan: keep the
-            sel = np.zeros(len(rel), bool)       # nearest voxel so the
-            sel[np.argmin((rel[:, :2] ** 2).sum(1))] = True  # gather works
-        cx = rel[sel].astype(np.float32)
-        b["ctx_xyz"] = cx
-        b["ctx_feats"] = ctx_feats_all[sel]
-        b["ctx_idx"] = context_indices(b["xyz"], cx)
-    return blocks
+    return ctx[:, :3], np.concatenate([ctx[:, 4:7] / 127.5 - 1.0, it],
+                                      1).astype(np.float32)
+
+
+def context_window(block_xyz: np.ndarray, block_min: np.ndarray,
+                   ctx_abs: np.ndarray, ctx_feats: np.ndarray,
+                   ctx_block: float = 50.0
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One block's context: the context points within ``ctx_block`` / 2 of
+    ``block_min`` in x and y (the nearest one alone where none is), in the
+    block's frame, their features, and each block point's nearest context
+    point (``context_indices``).  Returns (ctx_xyz [m', 3], ctx_feats
+    [m', 4], ctx_idx [n] int32)."""
+    rel = ctx_abs - block_min[None, :]
+    sel = (np.abs(rel[:, 0]) <= ctx_block / 2.0) \
+        & (np.abs(rel[:, 1]) <= ctx_block / 2.0)
+    if not sel.any():                        # degenerate scan: keep the
+        sel = np.zeros(len(rel), bool)       # nearest voxel so the
+        sel[np.argmin((rel[:, :2] ** 2).sum(1))] = True  # gather works
+    cx = rel[sel].astype(np.float32)
+    return cx, ctx_feats[sel], context_indices(block_xyz, cx)
 
 
 def context_blocks_from_list(model: str, blocks: List[Dict],

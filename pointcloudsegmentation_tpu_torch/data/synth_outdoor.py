@@ -1,9 +1,17 @@
 """Seeded synthetic outdoor scans in Semantic3D's raw layout, and the
 padded training batches their blocks give a Semantic3D model, as the train
 CLI's ``Provider`` serves them (for ``chip_smoke.py`` and
-``profile_train``; real Semantic3D scans are not in the repository)."""
+``profile_train``; real Semantic3D scans are not in the repository).
+
+As a program it writes a scan, or the 120 m scene around it, as a
+Semantic3D ``.txt`` + ``.labels`` pair for the prep CLI:
+
+  python -m pointcloudsegmentation_tpu_torch.data.synth_outdoor \
+      --what scene --seed 0 --out data/sem3d/scene0.txt
+"""
 from __future__ import annotations
 
+import argparse
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -194,3 +202,20 @@ def scan_batches(blocks_fn: Callable[..., List[Dict]], blocks: List[Dict],
     return list(Provider(["scan"], split, batch_size,
                          lambda model, _: blocks_fn(model, blocks, rng=rng),
                          num_points, seed=seed))
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--what", choices=("scan", "scene"), default="scan")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", required=True, help="the .txt path")
+    args = p.parse_args(argv)
+    fn = outdoor_scan if args.what == "scan" else outdoor_scene
+    points, labels = fn(args.seed)
+    semantic3d.write_points_txt(args.out, points, labels)
+    print(f"{args.out}: {len(points)} points")
+    return len(points)
+
+
+if __name__ == "__main__":
+    main()

@@ -50,12 +50,13 @@ def _masked_global_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def _search_one(xyz: torch.Tensor, mask: torch.Tensor, radius: float,
-                k: int, is_sorted: bool, chunk: int):
+                k: int, is_sorted: bool, chunk: int, windowed: bool = True):
     """One band (0, radius, k) with the JAX stages' candidate pool of 4k:
-    (neighborhood, raw sxyz [N, K+Ko, 3])."""
+    (neighborhood, raw sxyz [N, K+Ko, 3]); ``windowed=False`` takes the
+    global search on every level."""
     (res,) = search.band_neighbors_auto(
         xyz, mask, ((0.0, radius, k),), cand_k=min(4 * k, xyz.shape[0]),
-        chunk=chunk, return_sxyz=True, sorted=is_sorted)
+        chunk=chunk, return_sxyz=True, sorted=is_sorted, windowed=windowed)
     return res
 
 
@@ -152,10 +153,11 @@ class ECDStage(nn.Module):
 
     def forward(self, xyz: torch.Tensor, mask: torch.Tensor,
                 dxyz: torch.Tensor, feats: torch.Tensor,
-                is_sorted: bool = False, chunk: int = 1024):
+                is_sorted: bool = False, chunk: int = 1024,
+                windowed: bool = True):
         sp = self.spec
         nbr, sxyz_raw = _search_one(xyz, mask, sp.radius, sp.k, is_sorted,
-                                    chunk)
+                                    chunk, windowed)
         sxyz = sxyz_raw / sp.radius
         cfeats = torch.cat([self.xyz_gc(sxyz, None, nbr), feats], dim=-1)
         for i in range(len(sp.gc_dims)):
@@ -178,10 +180,11 @@ class ECDSegModel(nn.Module):
 
     def __init__(self, feat_dim: int, specs=SCANNET_ECD_SPEC,
                  search_chunk: int = 1024,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, windowed: bool = True):
         super().__init__()
         self.specs = tuple(specs)
         self.search_chunk = search_chunk
+        self.windowed = windowed
         self.dtype = dtype
         w = feat_dim
         widths = []
@@ -208,7 +211,8 @@ class ECDSegModel(nn.Module):
             dxyz = pyramid.dxyz[s] if use_d else lvl.xyz
             fc, lf = getattr(self, f"stage{s}")(
                 lvl.xyz, lvl.mask, dxyz, cur,
-                is_sorted=pyramid.level_sorted(s), chunk=self.search_chunk)
+                is_sorted=pyramid.level_sorted(s), chunk=self.search_chunk,
+                windowed=self.windowed)
             fcs.append(fc)
             lfs.append(lf)
             if s < n_stages - 1:
@@ -347,10 +351,11 @@ class PGNetHybrid(_GrowthGlobalDecoder):
     def __init__(self, feat_dim: int, specs=PGNET_V8_SPEC,
                  global_dims=(64, 64, 128), global_out: int = 256,
                  search_chunk: int = 1024,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, windowed: bool = True):
         super().__init__()
         self.specs = tuple(specs)
         self.search_chunk = search_chunk
+        self.windowed = windowed
         self.dtype = dtype
         w = prev_w = feat_dim
         i = 0
@@ -384,7 +389,8 @@ class PGNetHybrid(_GrowthGlobalDecoder):
                 if key not in cache:
                     cache[key] = _search_one(
                         lvl.xyz, lvl.mask, p.radius, p.k,
-                        pyramid.level_sorted(s), self.search_chunk)
+                        pyramid.level_sorted(s), self.search_chunk,
+                        self.windowed)
                 nbr, sxyz_raw = cache[key]
                 sxyz = sxyz_raw / p.radius
                 prev = feats
@@ -461,10 +467,11 @@ class ECDStageV2(nn.Module):
 
     def forward(self, xyz: torch.Tensor, mask: torch.Tensor,
                 dxyz: torch.Tensor, feats: torch.Tensor,
-                is_sorted: bool = False, chunk: int = 1024):
+                is_sorted: bool = False, chunk: int = 1024,
+                windowed: bool = True):
         sp = self.spec
         nbr, sxyz_raw = _search_one(xyz, mask, sp.radius, sp.k, is_sorted,
-                                    chunk)
+                                    chunk, windowed)
         sxyz = sxyz_raw * sp.sxyz_scale
         cfeats = torch.cat([feats, self.xyz(sxyz, nbr, mask)], dim=-1)
         for i in range(len(sp.feats_params)):
@@ -486,10 +493,11 @@ class PGNetV6(nn.Module):
 
     def __init__(self, feat_dim: int, specs=PGNET_V6_SPEC,
                  search_chunk: int = 1024,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, windowed: bool = True):
         super().__init__()
         self.specs = tuple(specs)
         self.search_chunk = search_chunk
+        self.windowed = windowed
         self.dtype = dtype
         s0 = ECDStageV2(self.specs[0], feat_dim, dtype=dtype)
         s1 = ECDStageV2(self.specs[1], feat_dim + s0.cfeats_width,
@@ -507,19 +515,22 @@ class PGNetV6(nn.Module):
         lvl0, lvl1, lvl2 = pyramid.levels[:3]
         fc0, lf0 = self.stage0(lvl0.xyz, lvl0.mask, pyramid.dxyz[0], feats,
                                is_sorted=pyramid.level_sorted(0),
-                               chunk=self.search_chunk)
+                               chunk=self.search_chunk,
+                               windowed=self.windowed)
         lf0_avg = hier.pool_avg(feats, pyramid, 0)
         ifeats0 = torch.cat([lf0_avg, hier.pool_max(fc0, pyramid, 0)],
                             dim=-1)
         fc1, lf1 = self.stage1(lvl1.xyz, lvl1.mask, pyramid.dxyz[1], ifeats0,
                                is_sorted=pyramid.level_sorted(1),
-                               chunk=self.search_chunk)
+                               chunk=self.search_chunk,
+                               windowed=self.windowed)
         lf1_avg = hier.pool_avg(lf0_avg, pyramid, 1)
         ifeats1 = torch.cat([hier.pool_max(fc1, pyramid, 1), lf1_avg],
                             dim=-1)
         fc2, lf2 = self.stage2(lvl2.xyz, lvl2.mask, lvl2.xyz, ifeats1,
                                is_sorted=pyramid.level_sorted(2),
-                               chunk=self.search_chunk)
+                               chunk=self.search_chunk,
+                               windowed=self.windowed)
         gvec = _masked_global_max(fc2, lvl2.mask)
         up2 = torch.cat([gvec[None, :].expand(fc2.shape[0], -1), fc2, lf2],
                         dim=-1)
@@ -579,10 +590,11 @@ class PGNetV7(_GrowthGlobalDecoder):
     def __init__(self, feat_dim: int, specs=PGNET_V7_SPEC,
                  global_dims=(64, 64, 64, 128), global_out: int = 384,
                  search_chunk: int = 1024,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, windowed: bool = True):
         super().__init__()
         self.specs = tuple(specs)
         self.search_chunk = search_chunk
+        self.windowed = windowed
         self.dtype = dtype
         w = prev_w = feat_dim
         i = 0
@@ -618,7 +630,8 @@ class PGNetV7(_GrowthGlobalDecoder):
                 if key not in cache:
                     cache[key] = _search_one(
                         lvl.xyz, lvl.mask, c.radius, c.k,
-                        pyramid.level_sorted(s), self.search_chunk)
+                        pyramid.level_sorted(s), self.search_chunk,
+                        self.windowed)
                 nbr, sxyz_raw = cache[key]
                 sxyz = sxyz_raw / c.radius
                 prev = feats

@@ -91,9 +91,11 @@ class GPNStage(nn.Module):
 
     def forward(self, xyz: torch.Tensor, mask: torch.Tensor,
                 dxyz: torch.Tensor, feats: torch.Tensor,
-                is_sorted: bool = False, chunk: int = 1024):
+                is_sorted: bool = False, chunk: int = 1024,
+                windowed: bool = True):
         sp = self.spec
-        nbr, sxyz = _search_one(xyz, mask, sp.radius, sp.k, is_sorted, chunk)
+        nbr, sxyz = _search_one(xyz, mask, sp.radius, sp.k, is_sorted, chunk,
+                                windowed)
         xyz_gc, lw, lw_sum = self.xyz_gc(sxyz, None, nbr)
         cfeats = torch.cat([torch.relu(self.xyz_fc(xyz_gc)), feats], dim=-1)
         for i in range(len(sp.gc_dims)):
@@ -113,10 +115,11 @@ class _GPNStages(nn.Module):
     feature widths, and a forward that returns every stage's (fc, lf)."""
 
     def __init__(self, feat_dim: int, specs, m: int, search_chunk: int,
-                 dtype: Optional[torch.dtype]):
+                 dtype: Optional[torch.dtype], windowed: bool = True):
         super().__init__()
         self.specs = tuple(specs)
         self.m, self.search_chunk, self.dtype = m, search_chunk, dtype
+        self.windowed = windowed
         self.widths = []   # (fc, lf) per stage
         w = feat_dim
         for s, sp in enumerate(self.specs):
@@ -133,7 +136,8 @@ class _GPNStages(nn.Module):
             dxyz = pyramid.dxyz[s] if s < len(pyramid.dxyz) else lvl.xyz
             fc, lf = getattr(self, f"stage{s}")(
                 lvl.xyz, lvl.mask, dxyz, cur,
-                is_sorted=pyramid.level_sorted(s), chunk=self.search_chunk)
+                is_sorted=pyramid.level_sorted(s), chunk=self.search_chunk,
+                windowed=self.windowed)
             fcs.append(fc)
             lfs.append(lf)
             if s < len(self.specs) - 1:
@@ -149,8 +153,8 @@ class GPNClassModel(_GPNStages):
 
     def __init__(self, feat_dim: int, specs=MODELNET_SPEC, m: int = 26,
                  search_chunk: int = 1024,
-                 dtype: Optional[torch.dtype] = None):
-        super().__init__(feat_dim, specs, m, search_chunk, dtype)
+                 dtype: Optional[torch.dtype] = None, windowed: bool = True):
+        super().__init__(feat_dim, specs, m, search_chunk, dtype, windowed)
         self.out_width = sum(fc + lf for fc, lf in self.widths)
 
     def forward(self, pyramid: Pyramid, feats: torch.Tensor) -> torch.Tensor:
@@ -174,8 +178,8 @@ class GPNSegModel(_GPNStages):
 
     def __init__(self, feat_dim: int, specs=MODELNET_SPEC, m: int = 26,
                  search_chunk: int = 1024,
-                 dtype: Optional[torch.dtype] = None):
-        super().__init__(feat_dim, specs, m, search_chunk, dtype)
+                 dtype: Optional[torch.dtype] = None, windowed: bool = True):
+        super().__init__(feat_dim, specs, m, search_chunk, dtype, windowed)
         fc_top = self.widths[-1][0]
         self.out_width = fc_top + sum(fc + lf for fc, lf in self.widths)
         self.stage0_width = sum(self.widths[0])

@@ -316,7 +316,7 @@ class PointNetSegEncoder(nn.Module):
                  head_dim: Optional[int] = HEAD_DIM,
                  search_chunk: int = 1024, win_tile: int = 256,
                  win_window: int = 256, ov_pool_size: int = OV_POOL_SIZE,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, windowed: bool = True):
         super().__init__()
         if head_dim is not None and arch.decoder == "deconv":
             raise ValueError("the factored head needs the linear concat "
@@ -328,6 +328,7 @@ class PointNetSegEncoder(nn.Module):
         self.win_tile = win_tile
         self.win_window = win_window
         self.ov_pool_size = ov_pool_size
+        self.windowed = windowed
         self.dtype = dtype
         n_stages = len(arch.stages)
         w = feat_dim
@@ -405,7 +406,8 @@ class PointNetSegEncoder(nn.Module):
         bands = tuple((mn, mx, k) for (mx, mn, k) in uniq)
         n = xyz.shape[0]
         chunk = min(self.search_chunk, n)
-        if is_sorted and n % self.win_tile == 0 and n >= 4 * self.win_tile:
+        if (self.windowed and is_sorted and n % self.win_tile == 0
+                and n >= 4 * self.win_tile):
             res = search.windowed_multi_band_neighbors(
                 xyz, mask, bands, tile=self.win_tile, window=self.win_window,
                 cand_k=search.effective_win_cand_k(WIN_CAND_K, CAND_K,
@@ -543,9 +545,10 @@ class PointNet2Baseline(nn.Module):
     POOLS = (((16, 16), 64), ((32, 32), 128))
 
     def __init__(self, feat_dim: int, search_chunk: int = 1024,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, windowed: bool = True):
         super().__init__()
         self.search_chunk = search_chunk
+        self.windowed = windowed
         self.dtype = dtype
         w = feat_dim
         ci = 0
@@ -584,7 +587,7 @@ class PointNet2Baseline(nn.Module):
                 lvl.xyz, lvl.mask, tuple((0.0, r, k) for r, k in uniq),
                 cand_k=min(self.cand_k, n),
                 chunk=min(self.search_chunk, n), return_sxyz=True,
-                sorted=pyramid.level_sorted(s))
+                sorted=pyramid.level_sorted(s), windowed=self.windowed)
             nbrs = dict(zip(uniq, res))
             for u in units:
                 nbr, sxyz_raw = nbrs[(u[0], u[1])]

@@ -122,10 +122,11 @@ class GenericStage(nn.Module):
 
     def forward(self, xyz: torch.Tensor, mask: torch.Tensor,
                 dxyz: torch.Tensor, feats: torch.Tensor,
-                is_sorted: bool = False, chunk: int = 1024):
+                is_sorted: bool = False, chunk: int = 1024,
+                windowed: bool = True):
         sp = self.spec
         nbr, sxyz_raw = _search_one(xyz, mask, sp.radius, sp.k, is_sorted,
-                                    chunk)
+                                    chunk, windowed)
         sxyz = sxyz_raw / sp.radius
         cfeats = torch.cat([self._apply_conv("xyz_gc", sxyz, xyz, nbr),
                             feats], dim=-1)
@@ -155,10 +156,11 @@ class TemplateSegModel(nn.Module):
     head_dim = None
 
     def __init__(self, feat_dim: int, conv: str, search_chunk: int = 1024,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, windowed: bool = True):
         super().__init__()
         self.specs = TEMPLATE_SPECS
         self.search_chunk = search_chunk
+        self.windowed = windowed
         self.dtype = dtype
         w, widths = feat_dim, []
         for s, sp in enumerate(self.specs):
@@ -181,7 +183,8 @@ class TemplateSegModel(nn.Module):
             dxyz = pyramid.dxyz[s] if s == 0 else lvl.xyz
             fc, lf = getattr(self, f"stage{s}")(
                 lvl.xyz, lvl.mask, dxyz, cur,
-                is_sorted=pyramid.level_sorted(s), chunk=self.search_chunk)
+                is_sorted=pyramid.level_sorted(s), chunk=self.search_chunk,
+                windowed=self.windowed)
             fcs.append(fc)
             lfs.append(lf)
             if s < top:
@@ -208,10 +211,11 @@ class SemanticPoolRefine(nn.Module):
     head."""
 
     def __init__(self, in_dim: int, search_chunk: int = 1024,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, windowed: bool = True):
         super().__init__()
         sp0, sp1 = REFINE_SPECS
         self.search_chunk = search_chunk
+        self.windowed = windowed
         self.semantic_embed = Dense(in_dim, REFINE_EMBED, dtype=dtype)
         self.stage0 = ECDStage(sp0, REFINE_EMBED, dtype=dtype)
         self.stage1 = ECDStage(sp1, sp0.final_dim, dtype=dtype)
@@ -224,11 +228,13 @@ class SemanticPoolRefine(nn.Module):
         lvl0, lvl1 = pyramid.levels[0], pyramid.levels[1]
         fc0, lf0 = self.stage0(lvl0.xyz, lvl0.mask, pyramid.dxyz[0], feats,
                                is_sorted=pyramid.level_sorted(0),
-                               chunk=self.search_chunk)
+                               chunk=self.search_chunk,
+                               windowed=self.windowed)
         pooled = hier.pool_max(fc0, pyramid, 0)
         fc1, lf1 = self.stage1(lvl1.xyz, lvl1.mask, lvl1.xyz, pooled,
                                is_sorted=pyramid.level_sorted(1),
-                               chunk=self.search_chunk)
+                               chunk=self.search_chunk,
+                               windowed=self.windowed)
         up1 = _tile_top(fc1, lf1, _masked_global_max(fc1, lvl1.mask))
         up0 = torch.cat([hier.unpool(up1, pyramid, 0), fc0, lf0], dim=-1)
         return up0, torch.cat([lf0, fc0], dim=-1)

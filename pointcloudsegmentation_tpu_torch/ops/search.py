@@ -361,7 +361,8 @@ def windowed_multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
 
 def band_neighbors_auto(xyz: torch.Tensor, mask: torch.Tensor, bands,
                         cand_k: int = 64, chunk: int = 1024,
-                        return_sxyz: bool = False, sorted: bool = False):
+                        return_sxyz: bool = False, sorted: bool = False,
+                        windowed: bool = True):
     """The JAX ``band_neighbors_auto`` (``ops/search.py:448-489``) with the
     defaults every caller of the port uses: the windowed search (tile and
     window 256, 8 overflow slots per band, per-point overflow slots:
@@ -369,10 +370,13 @@ def band_neighbors_auto(xyz: torch.Tensor, mask: torch.Tensor, bands,
     (``sorted``) and the level is tile-aligned and at least 4 tiles long,
     else the global search.  The windowed search's candidate pool is
     ``effective_win_cand_k(None, cand_k, bands, n)``; the global search
-    keeps ``min(cand_k, n)``.  The JAX version's environment overrides are
-    not carried over: slab selection is the only windowed mode."""
+    keeps ``min(cand_k, n)``.  ``windowed=False`` takes the global search
+    whatever the level (the scene eval's ``--exact-search``; the JAX
+    version reads ``PCS_DISABLE_WINDOWED=1`` from the environment).  The
+    JAX version's other environment overrides are not carried over: slab
+    selection is the only windowed mode."""
     n = xyz.shape[0]
-    if sorted and n % 256 == 0 and n >= 4 * 256:
+    if windowed and sorted and n % 256 == 0 and n >= 4 * 256:
         return windowed_multi_band_neighbors(
             xyz, mask, bands, tile=256, window=256,
             cand_k=effective_win_cand_k(None, cand_k, bands, n), ov_slots=8,

@@ -169,14 +169,15 @@ class RefineCascadeModel(nn.Module):
     def __init__(self, encoder: nn.Module, num_classes: int,
                  voxel_sizes: Tuple[float, ...], caps: Tuple[int, ...],
                  block_size: float, dtype: Optional[torch.dtype] = None,
-                 search_chunk: int = 1024):
+                 search_chunk: int = 1024, windowed: bool = True):
         super().__init__()
         self.encoder = encoder
         self.head = SegClassifier(num_classes, encoder.out_width,
                                   encoder.stage0_width, premixed=False,
                                   dtype=dtype)
         self.refine = template.SemanticPoolRefine(
-            encoder.out_width, search_chunk=search_chunk, dtype=dtype)
+            encoder.out_width, search_chunk=search_chunk, dtype=dtype,
+            windowed=windowed)
         self.refine_head = SegClassifier(
             num_classes, self.refine.global_width + encoder.out_width,
             encoder.stage0_width + self.refine.local_width, premixed=False,
@@ -311,7 +312,8 @@ def read_fn_for(cfg: TrainConfig, config_name: str):
 
 
 def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
-                device="cuda", **encoder_kw) -> nn.Module:
+                device="cuda", windowed: bool = True,
+                **encoder_kw) -> nn.Module:
     """Build ``cfg.model`` with ``cfg.compute_dtype`` compute.  Weights are
     Glorot-uniform draws from ``generator`` (on the CPU, so every device
     gets the same weights) or zeros without one, e.g. before loading a
@@ -332,7 +334,14 @@ def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
     PointNetSegEncoder of an ``_ARCHS`` key whose decoder is not the
     deconv, as the JAX build_model factors it (train/model_zoo.py:
     346-353).  ``cfg.diffusion_steps`` on a ``_PIPELINES`` key (no
-    diffusion tail; the JAX build ignores it) raises."""
+    diffusion tail; the JAX build ignores it) raises.
+
+    ``windowed=False`` builds the model with the exact global neighbor
+    search on every level (the scene eval's ``--exact-search``): it
+    reaches every encoder's dispatch between the windowed and the global
+    search (``PointNetSegEncoder._stage_neighborhoods`` and
+    ``search.band_neighbors_auto``), where the JAX package reads
+    ``PCS_DISABLE_WINDOWED=1`` from the environment."""
     others = {**_ENCODERS, **_CASCADES, **_CLASSIFIERS}
     known = {**_ARCHS, **_PIPELINES, **others}
     if cfg.model not in known:
@@ -347,7 +356,8 @@ def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
             raise ValueError(f"{cfg.model} has no diffusion tail "
                              "(--use-diffusion)")
         p = _PIPELINES[cfg.model]
-        model = p.model(p.encoder(d.feat_dim, dtype=dtype, **encoder_kw),
+        model = p.model(p.encoder(d.feat_dim, dtype=dtype,
+                                  windowed=windowed, **encoder_kw),
                         d.num_classes, d.voxel_sizes, d.caps, d.block_size,
                         dtype=dtype)
         return _place(model, generator, device)
@@ -356,18 +366,20 @@ def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
         if extra:
             raise TypeError(f"{cfg.model} takes only search_chunk, got "
                             f"{sorted(extra)}")
-        enc = others[cfg.model](d.feat_dim, dtype=dtype, **encoder_kw)
+        enc = others[cfg.model](d.feat_dim, dtype=dtype, windowed=windowed,
+                                **encoder_kw)
     else:
         arch = _ARCHS[cfg.model]()
         enc = PointNetSegEncoder(
             d.feat_dim, arch=arch,
             head_dim=None if arch.decoder == "deconv" else HEAD_DIM,
-            dtype=dtype, **encoder_kw)
+            dtype=dtype, windowed=windowed, **encoder_kw)
     common = (enc, d.num_classes, d.voxel_sizes, d.caps, d.block_size)
     if cfg.model in _CLASSIFIERS:
         model = ClassificationModel(*common, dtype=dtype)
     elif cfg.model in _CASCADES:
-        model = RefineCascadeModel(*common, dtype=dtype, **encoder_kw)
+        model = RefineCascadeModel(*common, dtype=dtype, windowed=windowed,
+                                   **encoder_kw)
     else:
         model = SegmentationModel(*common, dtype=dtype,
                                   diffusion_steps=cfg.diffusion_steps)

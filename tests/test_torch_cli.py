@@ -327,15 +327,6 @@ def test_cli_semantic3d_trains_from_block_pkls(tmp_path):
     assert batch["feats"].shape == (2, 512, 13)
 
 
-def test_scene_eval_refuses_semantic3d():
-    """The scene eval has no Semantic3D ratio or scene reader yet
-    (ROADMAP.md M8b), so it refuses the config."""
-    with pytest.raises(SystemExit):
-        interpolate.parse_args(["--config", "semantic3d"])
-    assert interpolate.parse_args(["--config", "scannet"]).config == \
-        "scannet"
-
-
 def test_cli_semantic3d_synthetic_batches_match_jax():
     """``--config semantic3d --synthetic`` gives the JAX CLI's batches: 13
     feature columns, labels of the 8 classes."""

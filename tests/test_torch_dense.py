@@ -49,7 +49,6 @@ from pointcloudsegmentation_tpu.train.loop import \
     make_lr_schedule as jschedule
 from pointcloudsegmentation_tpu.train.loop import seg_loss as jseg_loss
 from pointcloudsegmentation_tpu_torch import config as tconfig
-from pointcloudsegmentation_tpu_torch import interpolate
 from pointcloudsegmentation_tpu_torch.convert import (
     flax_train_state_to_torch, load_flax_params)
 from pointcloudsegmentation_tpu_torch.data import io_util as tio
@@ -324,15 +323,6 @@ def test_use_diffusion_is_refused(key):
     with pytest.raises(ValueError, match="no diffusion tail"):
         cli.main(argv if key == "dense_semantic3d" else argv[:-1]
                  + ["--data-dir", "."])
-
-
-def test_scene_eval_refuses_the_pipelines_extra_fields():
-    """No scene pkl holds the dense cloud (ROADMAP R8): the scene eval
-    says so instead of calling the model without it."""
-    with pytest.raises(SystemExit, match="dense_xyz.*M8b"):
-        interpolate.main(["--config", "s3dis", "--model",
-                          "dense_semantic3d", "--synthetic", "--num-points",
-                          "256", "--device", "cpu"])
 
 
 # -- the numpy copies ---------------------------------------------------------

@@ -59,7 +59,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "utils.logging", "models.ecd", "models.variants",
                  "models.gpn", "ops.anchors", "data.modelnet",
                  "models.template", "models.dense", "models.context",
-                 "data.synth_outdoor"):
+                 "data.synth_outdoor", "prepare_data", "ops.interpolate",
+                 "eval.interpolate"):
         assert f"'pointcloudsegmentation_tpu_torch.{name}'" in walked, name
 
 
