@@ -186,6 +186,35 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    by the native library's rounding of the distances); both arms' seconds
    and the device arm's peak memory.
 
+16. the parallel paths on the one card, at full width (the flagship,
+   bf16 compute, seeded weights).  (a) The mesh trainer on phase 7's
+   batch: at world size 1 on NCCL in this process, 3 steps whose loss,
+   metrics and parameters, and then the logits of block 0, are bitwise
+   those of ``Trainer(mesh=None)``; then 2 gloo ranks sharing the card, 2
+   blocks each: the step-1 loss within 1e-6 relative, the flat gradient
+   within 1e-5 of its largest magnitude (only the order of the 4-block
+   sum differs), equal step-1 metrics, parameters bitwise equal across
+   the ranks after each of 3 steps, 2 x (16 K2 + 13 K3) launches a rank
+   and step; step times and peak memory per rank.  (b) The train CLI's
+   default (the mesh, one card, NCCL) and ``--no-mesh``, 3 steps of 4
+   blocks with a test epoch: the metrics records equal bit for bit but
+   for the throughput, launches as phase 9 counts them.  (c)
+   ``scene_apply`` over 4 gloo ranks sharing the card, the flagship in
+   float32 on the 32,768-point 48 m corridor of ``halo_study`` (8192
+   points a shard), the halo the smallest multiple of 256 at or above
+   ``geometric_required_halo`` at the flagship's receptive field (cells of
+   its coarsest voxel), so every shard takes the windowed path: in both
+   halo modes each rank's logits are within 1e-5 of the largest |logit|
+   of the sequential run of the same extended shards on the card (and
+   agree on at least 0.999 of the argmax), with the same halo rows and
+   masks, probabilities finite with rows summing to 1, K2 16 times a
+   shard; in geom mode the card's sequential run agrees with the CPU's
+   on at least 0.999 of the argmax (the index mode's shards differ only
+   in their halo rows, held exactly above); ungated, the argmax
+   agreement with the full-neighbour run (index mode, halo = L),
+   seconds, scene points/s and peak memory per rank.  Each group has a
+   rendezvous and join timeout.
+
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
 the card's name and power limit, and as the last line ``{"ok": true,
@@ -240,6 +269,20 @@ SCAN_WORKERS = 2            # prep processes
 SCAN_KNN = 6                # the scene eval's k (its default)
 INTERP_ARGMAX_MIN = 0.999   # device vs native interpolation over every scan
 INTERP_PROB_TOL = 1e-3      # point: argmax agreement and largest |dp|
+# phase 16: the parallel paths on the one card
+P16_STEPS = 3               # training steps of each mesh configuration
+P16_GLOO_RANKS = 2          # trainer ranks sharing the card over gloo
+P16_SCENE_RANKS = 4         # scene_apply ranks sharing the card over gloo
+P16_SCENE_POINTS = 32768    # the corridor: 4 shards of 8192 points
+P16_SHARD = P16_SCENE_POINTS // P16_SCENE_RANKS
+P16_SCENE_LENGTH = 48.0     # metres (scripts/halo_study.py's corridor)
+P16_SORT_CELL = 0.2         # scene_apply's Morton cell (the study's)
+P16_LOSS_RTOL = 1e-6        # gloo ranks vs one process: step-1 loss
+P16_GRAD_REL = 1e-5         # ... flat gradient, of its largest |g|
+P16_TIMEOUT = 300           # seconds: each group's rendezvous, collectives
+#                             and join
+SCENE_ARGMAX_MIN = 0.999    # scene_apply vs the sequential run (float32)
+P16_LOGIT_REL = 1e-5        # ... its logits, of max(1, the largest |logit|)
 ECD_TIMED_STEPS = 3         # training steps timed after the counted first
 DSLAB_F32_RTOL = 1e-6       # slab-gradient kernel vs plain, float32
 GRAD_COSINE_MIN = 0.999     # flat gradient, float32 card vs CPU
@@ -2777,6 +2820,458 @@ def phase_scan(card):
     return total, records
 
 
+
+# -- phase 16: the parallel paths on the one card ---------------------------
+
+def p16_batch():
+    """Phase 7's first batch: 4 toy blocks of 8192 points (seed 0)."""
+    from pointcloudsegmentation_tpu_torch.data import toy
+
+    return next(toy.toy_batches(1, batch_size=TRAIN_BLOCKS,
+                                num_points=N_POINTS, num_classes=13,
+                                feat_dim=12))
+
+
+def p16_group(store, n, rank, backend):
+    """Join a group of ``n`` ranks on the card with phase 16's timeout."""
+    import datetime
+
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.parallel import (global_mesh,
+                                                           initialize)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize(store, n, rank, backend=backend, device="cuda",
+               timeout=datetime.timedelta(seconds=P16_TIMEOUT))
+    return global_mesh("cuda")
+
+
+def p16_steps(trainer, batch):
+    """``P16_STEPS`` training steps from the seed-0 state: (per step: its
+    metrics on the host, params and seconds), the last state."""
+    import torch
+
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    steps = []
+    for _ in range(P16_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        steps.append(({k: v.cpu() for k, v in m.items()},
+                      state.params.cpu(), time.perf_counter() - t0))
+    return steps, state
+
+
+def p16_train_rank(rank, n, store, out_dir):
+    """One of the gloo ranks sharing the card in phase 16 (a)."""
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.config import s3dis_config
+    from pointcloudsegmentation_tpu_torch.parallel import shard_batch
+    from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+
+    mesh = p16_group(store, n, rank, "gloo")
+    try:
+        trainer = Trainer(s3dis_config(), device=mesh.device, mesh=mesh)
+        batch = shard_batch(p16_batch(), mesh)
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        loss, grad = trainer.loss_and_grad(state, batch, train=True)
+        out = {"loss": float(loss), "grad": grad.cpu()}
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out["steps"], _ = p16_steps(trainer, batch)
+        out["counts"] = read_counts()
+        out["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.save(out, os.path.join(out_dir, f"train{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def p16_trainer(card):
+    """16 (a): the mesh trainer at world size 1 on NCCL in this process,
+    bitwise against ``Trainer(mesh=None)``, then 2 gloo ranks sharing the
+    card against the one-process step."""
+    import tempfile
+
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.config import s3dis_config
+    from pointcloudsegmentation_tpu_torch.parallel import run_ranks
+    from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+
+    cfg = s3dis_config()
+    batch = p16_batch()
+    fwd, step = per_block(cfg)
+    block0 = [torch.from_numpy(batch[k][0]).cuda()
+              for k in ("xyz", "feats", "mask")]
+
+    def run(trainer):
+        torch.cuda.reset_peak_memory_stats()
+        steps, state = p16_steps(trainer, batch)
+        with torch.no_grad():
+            logits = trainer.bind(state)(*block0, train=False)
+        return (steps, logits.cpu(),
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    ref = Trainer(cfg, device="cuda")
+    ref_loss, ref_grad = ref.loss_and_grad(
+        ref.init_state(torch.Generator().manual_seed(0)), batch, train=True)
+    ref_loss, ref_grad = float(ref_loss), ref_grad.cpu()
+    ref_steps, ref_logits, ref_peak = run(ref)
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = p16_group("file://" + os.path.join(tmp, "nccl"), 1, 0, "nccl")
+        try:
+            trainer = Trainer(cfg, device=mesh.device, mesh=mesh)
+            reset_counts()
+            steps, logits, peak = run(trainer)
+            counts = read_counts()
+        finally:
+            torch.distributed.destroy_process_group()
+        expect = plus(times(step, P16_STEPS * TRAIN_BLOCKS), fwd)
+        log(f"[parallel] (a) mesh of 1 rank on {mesh.backend} "
+            f"({mesh.device}): launches "
+            + ", ".join(f"{k} {v} (expected {expect[k]})"
+                        for k, v in counts.items()))
+        check(counts == expect, f"mesh of 1 launches {counts}")
+        total = plus(total, counts)
+        for i, ((m, p, _), (rm, rp, _)) in enumerate(zip(steps, ref_steps)):
+            for key in rm:
+                check(torch.equal(m[key], rm[key]),
+                      f"NCCL mesh of 1, step {i + 1}: {key} differs")
+            check(torch.equal(p, rp), f"NCCL mesh of 1, step {i + 1}: "
+                  "params differ")
+        check(torch.equal(logits, ref_logits), "NCCL mesh of 1: logits "
+              "differ")
+        log(f"[parallel] (a) NCCL mesh of 1 vs Trainer(mesh=None), "
+            f"{P16_STEPS} steps of {TRAIN_BLOCKS} x {N_POINTS} points: loss, "
+            f"metrics and params after every step and the logits of block 0 "
+            f"bitwise equal; losses "
+            + ", ".join(f"{float(m['loss']):.6f}" for m, _, _ in steps)
+            + "; step s "
+            + ", ".join(f"{t:.4f}" for *_, t in steps)
+            + f" (alone: " + ", ".join(f"{t:.4f}" for *_, t in ref_steps)
+            + f"); peak {peak:.3f} GiB (alone {ref_peak:.3f}) [{card}]")
+
+        store = "file://" + os.path.join(tmp, "gloo_train")
+        t0 = time.perf_counter()
+        run_ranks(p16_train_rank, P16_GLOO_RANKS,
+                  (P16_GLOO_RANKS, store, tmp), timeout=P16_TIMEOUT)
+        secs = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"train{r}.pt"))
+                 for r in range(P16_GLOO_RANKS)]
+    per_rank = TRAIN_BLOCKS // P16_GLOO_RANKS
+    expect = times(step, P16_STEPS * per_rank)
+    g_scale = ref_grad.abs().max().item()
+    for r, res in enumerate(ranks):
+        check(res["counts"] == expect, f"gloo rank {r} launches "
+              f"{res['counts']}, expected {expect}")
+        total = plus(total, res["counts"])
+        rel = abs(res["loss"] - ref_loss) / abs(ref_loss)
+        dg = (res["grad"] - ref_grad).abs().max().item()
+        check(rel <= P16_LOSS_RTOL, f"gloo rank {r}: step-1 loss "
+              f"{res['loss']} vs {ref_loss}")
+        check(dg <= P16_GRAD_REL * g_scale, f"gloo rank {r}: gradient "
+              f"max |d| {dg} of max |g| {g_scale}")
+        m1 = res["steps"][0][0]
+        for key in ("cm", "correct", "count"):
+            check(torch.equal(m1[key], ref_steps[0][0][key]),
+                  f"gloo rank {r}: step-1 {key} differs")
+        log(f"[parallel] (a) gloo rank {r} of {P16_GLOO_RANKS} on the card "
+            f"({per_rank} blocks): step-1 loss rel {rel:.2e} (need <= "
+            f"{P16_LOSS_RTOL:g}), gradient max |d| {dg:.3e} = "
+            f"{dg / g_scale:.2e} of max |g| {g_scale:.4f} (need <= "
+            f"{P16_GRAD_REL:g}), step-1 cm/correct/count equal; launches "
+            f"{res['counts']} ({per_rank} x (16 K2 + 13 K3) a step); step s "
+            + ", ".join(f"{t:.4f}" for *_, t in res["steps"])
+            + f"; peak {res['peak']:.3f} GiB [{card}]")
+    for i in range(P16_STEPS):
+        check(all(torch.equal(res["steps"][i][1], ranks[0]["steps"][i][1])
+                  for res in ranks), f"gloo ranks' params differ after "
+              f"step {i + 1}")
+    log(f"[parallel] (a) gloo ranks' params bitwise equal after each of "
+        f"{P16_STEPS} steps; the group took {secs:.1f} s with its spawn")
+    return total
+
+
+def p16_cli(card):
+    """16 (b): the train CLI's default (the mesh, one card, NCCL) and
+    ``--no-mesh`` give the same metrics record bit for bit."""
+    import tempfile
+
+    from pointcloudsegmentation_tpu_torch.config import s3dis_config
+    from pointcloudsegmentation_tpu_torch.train import cli
+
+    fwd, step = per_block(s3dis_config(data_num_points=N_POINTS))
+    blocks = CLI_STEPS * TRAIN_BLOCKS
+    expect = plus(times(step, blocks), times(fwd, blocks))
+    base = ["--config", "s3dis", "--synthetic", "--epochs", "1",
+            "--steps-per-epoch", str(CLI_STEPS), "--batch-size",
+            str(TRAIN_BLOCKS), "--num-points", str(N_POINTS)]
+    total, recs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in (("mesh", []), ("no-mesh", ["--no-mesh"])):
+            path = os.path.join(tmp, f"{name}.jsonl")
+            _, counts, _ = run_path(
+                f"(b) train CLI {name} ({CLI_STEPS} train + {CLI_STEPS} "
+                f"test steps of {TRAIN_BLOCKS} x {N_POINTS} points)",
+                lambda: cli.main(base + extra + ["--metrics-file", path]),
+                expect)
+            total = plus(total, counts)
+            recs[name], = read_records(path)
+    a, b = recs["mesh"], recs["no-mesh"]
+    check(set(a) == set(b) == METRICS_KEYS, f"record keys {sorted(a)}")
+    for k in METRICS_KEYS - {"points_per_sec"}:
+        check(a[k] == b[k], f"CLI mesh vs --no-mesh: {k} {a[k]} != {b[k]}")
+    log(f"[parallel] (b) CLI mesh vs --no-mesh: every key of the record "
+        f"but the throughput bit for bit (train_loss {a['train_loss']!r}, "
+        f"mIoU {a['miou']!r}); {a['points_per_sec']:.1f} vs "
+        f"{b['points_per_sec']:.1f} train points/s [{card}]")
+    return total
+
+
+def p16_scene_cfg():
+    """The flagship in float32 sized as ``scripts/halo_study.py`` sizes its
+    model: for the largest extended shard (the reference's, halo = L),
+    caps at one voxel a point (the corridor is sparse), block size the
+    corridor's length."""
+    from pointcloudsegmentation_tpu_torch.config import s3dis_config
+
+    ext = 3 * P16_SHARD
+    return s3dis_config(data_num_points=ext, data_caps=(ext, ext // 2),
+                        data_block_size=P16_SCENE_LENGTH,
+                        compute_dtype="float32")
+
+
+def p16_scene():
+    """The port's ``halo_study.corridor_scene`` at 4 x 8192 points over
+    48 m, as numpy (xyz, feats, mask)."""
+    import numpy as np
+
+    from pointcloudsegmentation_tpu_torch.halo_study import corridor_scene
+
+    return corridor_scene(np.random.RandomState(0), P16_SCENE_POINTS,
+                          P16_SCENE_LENGTH)
+
+
+def p16_apply(model):
+    return lambda x, f, m: model(x, f, m, train=False)
+
+
+def p16_scene_rank(rank, n, store, out_dir, halo):
+    """One of the 4 gloo ranks sharing the card in phase 16 (c); after its
+    card arms it also runs its own shard of the geom mode's sequential run
+    on the CPU (``shard_logits``), so the 4 shards of the CPU reference run
+    side by side."""
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.ops import morton
+    from pointcloudsegmentation_tpu_torch.parallel.scene_shard import (
+        exchange_shard, model_receptive_field, scene_apply, shard_logits)
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    mesh = p16_group(store, n, rank, "gloo")
+    try:
+        cfg = p16_scene_cfg()
+        cell = cfg.data.voxel_sizes[-1]
+        model = build_model(cfg, torch.Generator().manual_seed(0),
+                            mesh.device).eval()
+        rf = model_receptive_field(model.encoder.arch)
+        xyz, feats, mask = (torch.from_numpy(a).to(mesh.device)
+                            for a in p16_scene())
+        out = {}
+        torch.cuda.reset_peak_memory_stats()
+        for arm, mode, h in (("geom", "geom", halo), ("index", "index", halo),
+                             ("full", "index", P16_SHARD)):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits = scene_apply(
+                    p16_apply(model), xyz, feats, mask, mesh, halo=h,
+                    sort_cell=P16_SORT_CELL, scene_extent=P16_SCENE_LENGTH,
+                    receptive_field=rf if arm == "geom" else 0.0,
+                    halo_mode=mode, halo_cell=cell)
+            torch.cuda.synchronize()
+            out[arm] = {"seconds": time.perf_counter() - t0,
+                        "counts": read_counts(), "logits": logits.cpu()}
+        out["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        xs, ms, _ = morton.sort_block(xyz, mask, P16_SORT_CELL,
+                                      P16_SCENE_LENGTH)
+        rows = torch.arange(xs.shape[0], dtype=torch.float32,
+                            device=xs.device)[:, None]
+        core = slice(rank * P16_SHARD, (rank + 1) * P16_SHARD)
+        for mode in ("geom", "index"):
+            _, r, m = exchange_shard(xs[core], rows[core], ms[core], halo,
+                                     mesh, mode, cell)
+            out[mode]["rows"], out[mode]["mask"] = r[:, 0].long().cpu(), \
+                m.cpu()
+        # this shard of the sequential run on the CPU (a quarter of the
+        # host's cores: 4 ranks share them)
+        torch.set_num_threads(max(os.cpu_count() // n, 1))
+        cpu = model.cpu()
+        xs, ms, _, fs = morton.sort_block(xyz.cpu(), mask.cpu(),
+                                          P16_SORT_CELL, P16_SCENE_LENGTH,
+                                          feats.cpu())
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out["geom"]["cpu_core"] = shard_logits(
+                p16_apply(cpu), xs, fs, ms, n, rank, halo, "geom", cell)
+        out["cpu_seconds"] = time.perf_counter() - t0
+        torch.save(out, os.path.join(out_dir, f"scene{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+ZERO_COUNTS = {"window_gather": 0, "window_dslab": 0, "window_dslab_map": 0}
+
+
+def p16_agree(a, b):
+    return float((a.argmax(-1) == b.argmax(-1)).double().mean())
+
+
+def p16_scene_apply(card):
+    """16 (c): ``scene_apply`` over 4 gloo ranks sharing the card, both halo
+    modes, against the sequential run of the same extended shards on the
+    card, and the geom mode's also on the CPU."""
+    import tempfile
+
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.ops import morton
+    from pointcloudsegmentation_tpu_torch.parallel import run_ranks
+    from pointcloudsegmentation_tpu_torch.parallel.scene_shard import (
+        extended_shard, geometric_required_halo, model_receptive_field,
+        sequential_scene_apply)
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    cfg = p16_scene_cfg()
+    cell = cfg.data.voxel_sizes[-1]
+    xyz, feats, mask = (torch.from_numpy(a) for a in p16_scene())
+    xs, ms, order = morton.sort_block(xyz, mask, P16_SORT_CELL,
+                                      P16_SCENE_LENGTH)
+    model = build_model(cfg, torch.Generator().manual_seed(0), "cpu").eval()
+    rf = model_receptive_field(model.encoder.arch)
+    t0 = time.perf_counter()
+    need, unreachable = geometric_required_halo(
+        xs.numpy(), ms.numpy(), P16_SCENE_RANKS, rf, cell_size=cell)
+    t_rule = time.perf_counter() - t0
+    halo = -(-need // 256) * 256
+    ext = P16_SHARD + 2 * halo
+    check(unreachable == 0 and halo <= P16_SHARD,
+          f"required halo {need} ({unreachable} unreachable pairs)")
+    fwd, _ = per_block(at_points(cfg, ext))
+    full_fwd, _ = per_block(cfg)
+    log(f"[parallel] (c) corridor {P16_SCENE_POINTS} points over "
+        f"{P16_SCENE_LENGTH:g} m, {P16_SCENE_RANKS} shards of {P16_SHARD}: "
+        f"flagship receptive field {rf:.2f} m, geometric_required_halo "
+        f"{need} with cells of {cell:g} m ({t_rule:.2f} s on the host) -> "
+        f"halo {halo}, extended shard {ext} points; K2 per shard "
+        f"{fwd['window_gather']} (full-neighbour arm "
+        f"{full_fwd['window_gather']})")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_ranks(p16_scene_rank, P16_SCENE_RANKS,
+                  (P16_SCENE_RANKS, "file://" + os.path.join(tmp, "s"), tmp,
+                   halo), timeout=P16_TIMEOUT)
+        t_ranks = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"scene{r}.pt"))
+                 for r in range(P16_SCENE_RANKS)]
+    inv = morton.inverse_permutation(order)
+    seq_cpu = torch.cat([res["geom"]["cpu_core"] for res in ranks])[inv]
+    total = {}
+    expect = {"geom": fwd, "index": fwd, "full": full_fwd}
+    for r, res in enumerate(ranks):
+        for arm in ("geom", "index", "full"):
+            check(res[arm]["counts"] == plus(expect[arm], ZERO_COUNTS),
+                  f"rank {r} {arm}: "
+                  f"launches {res[arm]['counts']}, expected {expect[arm]}")
+            total = plus(total, res[arm]["counts"])
+    gpu = model.cuda()
+    xs_g, ms_g = xs.cuda(), ms.cuda()
+    rows = torch.arange(P16_SCENE_POINTS, dtype=torch.float32,
+                        device="cuda")[:, None]
+    for mode in ("geom", "index"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            seq = sequential_scene_apply(
+                p16_apply(gpu), xyz.cuda(), feats.cuda(), mask.cuda(),
+                P16_SCENE_RANKS, halo, P16_SORT_CELL, P16_SCENE_LENGTH,
+                halo_mode=mode, halo_cell=cell).cpu()
+        t_seq = time.perf_counter() - t0
+        if mode == "geom":
+            agree_cpu = p16_agree(seq, seq_cpu)
+            check(agree_cpu >= SCENE_ARGMAX_MIN, f"{mode}: card vs CPU "
+                  f"sequential argmax {agree_cpu}")
+            vs_cpu = f"card vs CPU sequential argmax {agree_cpu:.6f}"
+        else:
+            vs_cpu = "no CPU run (the halo rows differ, held above)"
+        scale = max(1.0, float(seq.abs().max()))
+        worst, worst_d, n_equal = 1.0, 0.0, 0
+        for r, res in enumerate(ranks):
+            got = res[mode]["logits"]
+            probs = torch.softmax(got.double(), -1)
+            dev = float((probs.sum(-1) - 1).abs().max())
+            check(bool(torch.isfinite(probs).all()) and
+                  dev <= PROB_SUM_TOL, f"rank {r} {mode}: probs rows sum "
+                  f"to 1 +- {dev}")
+            agree = p16_agree(got, seq)
+            worst = min(worst, agree)
+            check(agree >= SCENE_ARGMAX_MIN, f"rank {r} {mode}: argmax "
+                  f"{agree} against the sequential run")
+            d = float((got - seq).abs().max())
+            worst_d = max(worst_d, d)
+            n_equal += int(torch.equal(got, seq))
+            check(d <= P16_LOGIT_REL * scale, f"rank {r} {mode}: logits "
+                  f"differ from the sequential run by {d} (scale {scale})")
+            *_, m_want, r_want = extended_shard(
+                xs_g, rows, ms_g, P16_SCENE_RANKS, r, halo, mode, cell)
+            check(torch.equal(res[mode]["rows"], r_want.cpu()) and
+                  torch.equal(res[mode]["mask"], m_want.cpu()),
+                  f"rank {r} {mode}: halo rows differ from extended_shard")
+        secs = max(res[mode]["seconds"] for res in ranks)
+        log(f"[parallel] (c) {mode} halo {halo}: each rank's logits vs the "
+            f"sequential run on the card: max |d| {worst_d:.3e} (need <= "
+            f"{P16_LOGIT_REL:g} x {scale:.3f}; {n_equal} of "
+            f"{P16_SCENE_RANKS} ranks bitwise equal), argmax >= {worst:.6f} "
+            f"(need >= {SCENE_ARGMAX_MIN}), halo rows and masks equal on "
+            f"every rank; {vs_cpu}; probs finite, "
+            f"rows sum to 1; {secs:.3f} s over {P16_SCENE_RANKS} ranks = "
+            f"{P16_SCENE_POINTS / secs:.1f} scene points/s (sequential on the "
+            f"card {t_seq:.3f} s) [{card}]")
+    full = ranks[0]["full"]["logits"]
+    log(f"[parallel] (c) ungated: argmax agreement with the full-neighbour "
+        f"run (index, halo {P16_SHARD}): geom "
+        f"{p16_agree(ranks[0]['geom']['logits'], full):.6f}, index "
+        f"{p16_agree(ranks[0]['index']['logits'], full):.6f}; full arm "
+        f"{max(res['full']['seconds'] for res in ranks):.3f} s; peak per "
+        f"rank " + ", ".join(f"{res['peak']:.3f}" for res in ranks)
+        + f" GiB; the ranks took {t_ranks:.1f} s with their spawn and their "
+        f"CPU shards (" + ", ".join(f"{res['cpu_seconds']:.1f}"
+                                    for res in ranks)
+        + f" s of CPU time a rank for the geom mode) [{card}]")
+    return total
+
+
+def at_points(cfg, num_points):
+    import dataclasses
+
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, num_points=num_points))
+
+
+def phase_parallel(card):
+    """16: the parallel paths on the one card (see the docstring)."""
+    total = p16_trainer(card)
+    total = plus(total, p16_cli(card))
+    return plus(total, p16_scene_apply(card))
+
+
 def main() -> int:
     try:
         import torch
@@ -2847,6 +3342,10 @@ def main() -> int:
     scan_launches, _ = phase_scan(card)
     log(f"[scan] phase 15 in {time.perf_counter() - t15:.1f} s")
     entry_launches = plus(entry_launches, scan_launches)
+    t16 = time.perf_counter()
+    parallel_launches = phase_parallel(card)
+    log(f"[parallel] phase 16 in {time.perf_counter() - t16:.1f} s")
+    entry_launches = plus(entry_launches, parallel_launches)
 
     main_row = next(r for r in rows if r["name"].endswith("conv"))
     dmain, fmain = drows[0], frows[0]
@@ -2859,8 +3358,8 @@ def main() -> int:
         f"{fmain['dtype']} (fused conv); launches are the serve sweep's plus "
         f"one training step's, the entry points', the PointNet family's, "
         f"the ECD family's, the GPN family's, the composite models', the "
-        f"Semantic3D pipelines' and the Semantic3D scan's, and the "
-        f"fused-conv bench's; eval "
+        f"Semantic3D pipelines', the Semantic3D scan's and the parallel "
+        f"paths' (every rank's), and the fused-conv bench's; eval "
         f"{pps:.1f} "
         f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "
         f"GiB")

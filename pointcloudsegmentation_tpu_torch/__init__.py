@@ -28,8 +28,10 @@ prepares datasets offline, ``... .train.cli`` trains and evaluates,
 their ``.labels`` submission), ``... .parity_ab``
 records a training curve on synthetic rooms, ``... .profile_train``
 profiles the training step on the card; plus the fused window-conv kernel
-with its microbench (``... .bench_fused_conv --level 0``).  See ROADMAP.md
-for what is still to port.
+with its microbench (``... .bench_fused_conv --level 0``); data and scene
+parallelism over ``torch.distributed`` (``parallel/``: the CLI's mesh,
+``scene_shard.scene_apply``), with ``... .dryrun`` and ``... .halo_study``.
+See ROADMAP.md for what is still to port.
 """
 
 __version__ = "0.1.0"

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 # 10 bits per axis -> 30-bit codes in int32 (grid up to 1024^3)
@@ -29,6 +30,23 @@ def morton_code(coords: torch.Tensor) -> torch.Tensor:
     c = coords.to(torch.int32)
     return (_spread3(c[:, 0]) | (_spread3(c[:, 1]) << 1)
             | (_spread3(c[:, 2]) << 2))
+
+
+def np_morton_code(coords: np.ndarray) -> np.ndarray:
+    """Host (numpy) copy of :func:`morton_code` for code that sizes or
+    checks device selections on the host
+    (``parallel.scene_shard.geometric_required_halo``): [N, 3] int cell
+    coords -> [N] int64 codes with the same bits."""
+    def spread(x):
+        x = x.astype(np.int64) & ((1 << _BITS) - 1)
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+
+    return (spread(coords[:, 0]) | (spread(coords[:, 1]) << 1)
+            | (spread(coords[:, 2]) << 2))
 
 
 def masked_min_corner(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -27,15 +27,28 @@ beside its dense cloud), or trains on synthetic dense batches;
 ``--model context_semantic3d`` reads pkls of
 ``semantic3d.prepare_context_scene`` blocks and has no synthetic data.
 It runs on the card (``--device cuda``) unless ``--device cpu`` is
-given, and raises where there is no card.  The JAX CLI's device mesh
-(``--no-mesh``) is not ported yet (ROADMAP.md).
+given, and raises where there is no card.
+
+By default it trains data-parallel over a mesh of ``--devices`` ranks, as
+the JAX CLI trains over every device: one rank per card under NCCL
+(default: every visible card), or ``--devices N`` ranks on the CPU under
+gloo with ``--device cpu`` (default 1).  N > 1 ranks are spawned processes
+that meet through a ``file://`` store in a temporary directory; a mesh of
+one rank runs in this process.  The batch size rounds down to a multiple
+of N (at least N), every rank builds the same global batches and steps on
+its slice of them, and rank 0 alone writes the log, the metrics and the
+checkpoints (every rank restores).  ``--no-mesh`` trains in this process
+with no process group.
 """
 from __future__ import annotations
 
 import argparse
+import datetime
 import glob
 import json
+import logging
 import os
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -45,9 +58,12 @@ from .. import config as config_lib
 from ..config import CONFIGS, require_device
 from ..data import toy
 from ..data.provider import Provider
+from ..parallel.distributed import (DEFAULT_TIMEOUT, global_mesh,
+                                    initialize, run_ranks)
+from ..parallel.mesh import Mesh, shard_batch
 from ..utils.logging import get_logger
 from .checkpoint import CheckpointManager
-from .loop import Trainer
+from .loop import Trainer, TrainState
 from .model_zoo import read_fn_for
 
 
@@ -87,6 +103,12 @@ def parse_args(argv=None):
                         "train_feats_compare*.py experiments)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--no-mesh", action="store_true",
+                   help="one process, no process group")
+    p.add_argument("--devices", type=int, default=None,
+                   help="ranks of the mesh: one per card under NCCL "
+                        "(default every visible card), or with --device "
+                        "cpu ranks on the CPU under gloo (default 1)")
     return p.parse_args(argv)
 
 
@@ -169,6 +191,13 @@ def make_batches(cfg, args, split: str, batch_size: int):
                               seed=epoch if split == "train" else 0))
 
 
+def _sharded(batches_fn, mesh: Optional[Mesh]):
+    """``batches_fn`` with each global batch cut to this rank's blocks."""
+    if mesh is None:
+        return batches_fn
+    return lambda epoch: (shard_batch(b, mesh) for b in batches_fn(epoch))
+
+
 def _metrics_writer(args, cfg):
     """Append-mode JSONL sink for per-epoch eval metrics: one JSON object
     per epoch, in place of grepping free-text logs
@@ -194,25 +223,83 @@ def _metrics_writer(args, cfg):
     return write
 
 
-def main(argv=None):
+def main(argv=None, timeout: Optional[float] = None):
+    """Train or evaluate as the arguments say; returns the final
+    ``TrainState`` (the ``--eval`` metrics with ``--eval``): rank 0's,
+    with its tensors on the CPU, when the mesh spans several ranks.
+    ``timeout`` (seconds) bounds the mesh's rendezvous and every
+    collective, and with several ranks their whole run; ``None`` keeps the
+    group's default (``DEFAULT_TIMEOUT`` a collective) and no bound on the
+    run, which may take days."""
     args = parse_args(argv)
     device = require_device(args.device)
+    if args.no_mesh:
+        return _run(args, device, None)
+    n = args.devices or (torch.cuda.device_count()
+                         if device.type == "cuda" else 1)
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        raise ValueError(f"--devices {n}: NCCL needs one card per rank and "
+                         f"this host shows {torch.cuda.device_count()}")
+    if torch.distributed.is_initialized():
+        raise RuntimeError("the train CLI starts its own process group; "
+                           "this process already belongs to one")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = "file://" + os.path.join(tmp, "store")
+        if n == 1:
+            return _run_rank(0, 1, store, args, None, timeout)
+        out = os.path.join(tmp, "result.pt")
+        run_ranks(_run_rank, n, (n, store, args, out, timeout), timeout)
+        return torch.load(out, weights_only=False)
+
+
+def _run_rank(rank: int, n: int, store: str, args, out: Optional[str],
+              timeout: Optional[float]):
+    """Rank ``rank`` of ``n``: join the group, train or evaluate, and (rank
+    0, when ``out`` is given) save the result there for the parent."""
+    if n > 1:   # the ranks share the host's cores
+        torch.set_num_threads(max(torch.get_num_threads() // n, 1))
+    initialize(store, n, rank, device=args.device,
+               timeout=DEFAULT_TIMEOUT if timeout is None
+               else datetime.timedelta(seconds=timeout))
+    try:
+        mesh = global_mesh(args.device)
+        res = _run(args, mesh.device, mesh)
+        if out is not None and rank == 0:
+            if isinstance(res, TrainState):
+                res = res.to("cpu")
+            torch.save(res, out)
+        return res
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _run(args, device: torch.device, mesh: Optional[Mesh]):
     cfg = build_cfg(args)
-    log = get_logger("pcs_torch.cli", args.log_file)
-    write_metrics = _metrics_writer(args, cfg)
+    lead = mesh is None or mesh.rank == 0
+    log = get_logger("pcs_torch.cli", args.log_file if lead else None)
+    if not lead:
+        log.setLevel(logging.WARNING)
+    write_metrics = _metrics_writer(args, cfg) if lead \
+        else (lambda rec: None)
 
-    batch_size = args.batch_size or max(cfg.batch_per_device, 1)
-    log.info("config=%s model=%s device=%s batch=%d points=%d", args.config,
-             cfg.model, device, batch_size, cfg.data.num_points)
+    n_dev = 1 if mesh is None else mesh.size
+    batch_size = args.batch_size or max(n_dev * cfg.batch_per_device, 1)
+    batch_size = (batch_size // n_dev) * n_dev or n_dev
+    log.info("config=%s model=%s device=%s ranks=%d batch=%d points=%d",
+             args.config, cfg.model, device, n_dev, batch_size,
+             cfg.data.num_points)
 
-    trainer = Trainer(cfg, device=device)
-    train_batches = make_batches(cfg, args, "train", batch_size)
-    test_batches = make_batches(cfg, args, "test", batch_size)
+    trainer = Trainer(cfg, device=device, mesh=mesh)
+    train_batches = _sharded(make_batches(cfg, args, "train", batch_size),
+                             mesh)
+    test_batches = _sharded(make_batches(cfg, args, "test", batch_size),
+                            mesh)
 
     state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
     ckpt: Optional[CheckpointManager] = None
     start_epoch = 0
-    if cfg.checkpoint_dir:
+    restoring = args.restore or args.restore_best
+    if cfg.checkpoint_dir and (lead or restoring):
         ckpt = CheckpointManager(cfg.checkpoint_dir, cfg.keep_checkpoints)
         if args.restore_best:
             state = ckpt.restore_best(state)
@@ -257,7 +344,7 @@ def main(argv=None):
                            "oacc": te["oacc"], "iou": te["iou"],
                            "acc": te["acc"],
                            "points_per_sec": tr["points_per_sec"]})
-            if ckpt is not None:
+            if ckpt is not None and lead:
                 # written in the background from a host snapshot
                 ckpt.save(epoch, state, metrics={"miou": float(te["miou"])})
         return state

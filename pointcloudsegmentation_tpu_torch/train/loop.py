@@ -21,6 +21,14 @@ names the batch fields it takes after (xyz, feats, mask) in
 ``extra_keys``; each block passes them in that order, as the JAX
 trainer's branches on ``dense_xyz`` / ``ctx_xyz`` do
 (``train/loop.py:141-166, 193-214``).
+
+Under a mesh of d ranks (``parallel.mesh``) every rank runs the same
+per-block accumulation on its own blocks, then ONE ``all_reduce`` sums the
+flat gradient, the loss terms and the metrics, as the single ``psum`` of
+the JAX trainer's mesh step (``train/loop.py:347-378``); every rank then
+applies the same update.  Each block's dropout stream derives from
+(seed, step, global block index), as JAX splits one key per block, so
+rank r's blocks draw what the single-card step's blocks r·B/d, ... draw.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from torch import nn
 from ..config import TrainConfig
 from ..convert import ravel_layout, ravel_params
 from ..data.provider import device_prefetch, to_device
+from ..parallel.mesh import Mesh, replicate
 from . import metrics as metrics_lib
 from .model_zoo import build_model
 
@@ -164,12 +173,24 @@ class Trainer:
     class weights; ``train_step``/``eval_step`` map (state, batch) to
     (state, metrics) like the JAX trainer, on ``device`` (the card unless
     the caller asks for the CPU).  A state's tensors are never written in
-    place, so an old state stays valid after a step."""
+    place, so an old state stays valid after a step.
+
+    With a ``mesh`` (``parallel.mesh.Mesh`` on this ``device``) every batch
+    a method takes is this rank's blocks (``parallel.mesh.shard_batch`` of
+    the global batch; every rank holds as many) and every loss, gradient
+    and metric it returns is the global batch's."""
 
     def __init__(self, cfg: TrainConfig, device="cuda",
-                 search_chunk: int = 1024, **encoder_kw):
+                 search_chunk: int = 1024, mesh: Optional[Mesh] = None,
+                 **encoder_kw):
         self.cfg = cfg
         self.device = torch.device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh's rank runs on {mesh.device}, the "
+                             f"trainer on {self.device}")
+        self.mesh = mesh
+        # the group the steps reduce over (a lone process has none)
+        self._group = None if mesh is None else mesh.group
         self.model = build_model(cfg, None, self.device,
                                  search_chunk=search_chunk, **encoder_kw)
         self.layout = ravel_layout(self.model)
@@ -219,14 +240,16 @@ class Trainer:
         if state.params.shape != self._flat.shape:
             raise ValueError(f"state has {tuple(state.params.shape)} "
                              f"params, the model {self.num_params}")
-        return state.to(self.device)
+        state = state.to(self.device)
+        return state if self.mesh is None else replicate(state, self.mesh)
 
     # -- steps -----------------------------------------------------------
-    def _dropout_generator(self, step: int) -> torch.Generator:
-        """Each step's dropout stream, seeded from (cfg.seed, step) so that
-        a step repeats."""
-        seed = np.random.SeedSequence([self.cfg.seed, step]).generate_state(
-            1, np.uint64)[0]
+    def _dropout_generator(self, step: int, block: int) -> torch.Generator:
+        """The dropout stream of global block ``block`` of step ``step``,
+        seeded from (cfg.seed, step, block): a step repeats, and a block
+        draws the same stream on whichever rank it lands."""
+        seed = np.random.SeedSequence(
+            [self.cfg.seed, step, block]).generate_state(1, np.uint64)[0]
         return torch.Generator(self.device).manual_seed(
             int(seed) & 0x7FFFFFFFFFFFFFFF)
 
@@ -241,12 +264,14 @@ class Trainer:
                grad: bool):
         """Per-block forward (+ backward into the flat gradient), block
         after block, each block's graph freed before the next starts.
-        Returns (s, w, cm, correct, count) summed over the blocks."""
+        Returns (s, w, cm, correct, count) summed over the blocks (over
+        every rank's blocks under a mesh, the flat gradient too)."""
         d = self.cfg.data
         batch = to_device(batch, self.device)
         self.bind(state)
         self._grad.zero_()
-        gen = self._dropout_generator(state.step) if train else None
+        nb = batch["xyz"].shape[0]
+        first = 0 if self.mesh is None else self.mesh.rank * nb
         c = d.num_classes
         s_acc = torch.zeros((), dtype=torch.float32, device=self.device)
         w_acc = torch.zeros_like(s_acc)
@@ -255,7 +280,9 @@ class Trainer:
         count = torch.zeros_like(correct)
         extra_keys = getattr(self.model, "extra_keys", ())
         with torch.set_grad_enabled(grad):
-            for b in range(batch["xyz"].shape[0]):
+            for b in range(nb):
+                gen = self._dropout_generator(state.step, first + b) \
+                    if train else None
                 logits = self.model(batch["xyz"][b], batch["feats"][b],
                                     batch["mask"][b],
                                     *(batch[k][b] for k in extra_keys),
@@ -287,7 +314,29 @@ class Trainer:
                 correct += bcorrect
                 count += bcount
                 del logits, base, s
+        if self._group is not None:
+            return self._all_reduce(s_acc, w_acc, cm, correct, count, grad)
         return s_acc, w_acc, cm, correct, count
+
+    def _all_reduce(self, s, w, cm, correct, count, grad: bool):
+        """The step's one collective: the flat gradient (when ``grad``),
+        s, w, the confusion matrix, correct and count summed over the
+        ranks in one ``all_reduce`` of a float64 buffer, which holds the
+        float32 terms and the integer counts exactly (the summed gradient
+        is rounded to float32 once)."""
+        parts = ([self._grad] if grad else []) + [s[None], w[None],
+                                                  cm.reshape(-1),
+                                                  correct[None], count[None]]
+        packed = torch.cat([p.double() for p in parts])
+        torch.distributed.all_reduce(packed, group=self._group)
+        n = self._grad.numel() if grad else 0
+        if grad:
+            self._grad.copy_(packed[:n])
+        c2 = cm.numel()
+        tail = packed[n:]
+        return (tail[0].float(), tail[1].float(),
+                tail[2:2 + c2].round().long().reshape(cm.shape),
+                tail[2 + c2].round().long(), tail[3 + c2].round().long())
 
     def loss_and_grad(self, state: TrainState, batch: Dict,
                       train: bool = True
@@ -328,7 +377,9 @@ class Trainer:
         and read back once at the end (and at log lines, every
         ``cfg.log_every`` steps); ``points_per_sec`` counts valid points,
         ``blocks_per_sec`` blocks, both counted on the host before
-        transfer."""
+        transfer (the log lines count this rank's blocks; the result every
+        rank's, summed by one ``all_reduce`` at the end of the epoch under
+        a mesh)."""
         acc = metrics_lib.MetricAccumulator(self.cfg.data.num_classes)
         t0 = time.time()
         points = blocks = 0
@@ -361,6 +412,11 @@ class Trainer:
             acc.update(cm_dev)
             acc.loss_sum = float(loss_dev)
             acc.loss_n = nsteps
+        if self._group is not None:
+            total = torch.tensor([points, blocks], dtype=torch.int64,
+                                 device=self.device)
+            torch.distributed.all_reduce(total, group=self._group)
+            points, blocks = (int(v) for v in total.tolist())
         res = acc.result()
         dt = max(time.time() - t0, 1e-9)
         res["points_per_sec"] = points / dt

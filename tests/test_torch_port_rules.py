@@ -60,7 +60,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "models.gpn", "ops.anchors", "data.modelnet",
                  "models.template", "models.dense", "models.context",
                  "data.synth_outdoor", "prepare_data", "ops.interpolate",
-                 "eval.interpolate"):
+                 "eval.interpolate", "parallel.mesh", "parallel.distributed",
+                 "parallel.scene_shard", "dryrun", "halo_study"):
         assert f"'pointcloudsegmentation_tpu_torch.{name}'" in walked, name
 
 
