@@ -214,6 +214,30 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    agreement with the full-neighbour run (index mode, halo = L),
    seconds, scene points/s and peak memory per rank.  Each group has a
    rendezvous and join timeout.
+17. the analysis and tooling layer at full width (the flagship, bf16
+   compute, seeded weights), each part's K2/K3 launches counted as the
+   entry points' are.  (a) ``verify_search_recall`` on 8192 points, seeds
+   0 and 1: the global search's recall of every band at least 0.99, the
+   production windowed search's (slab:32:256:256, one K2 for its slab
+   read) at least 0.94, against the exact float64 host reference.
+   (b) ``capture_activations`` on one toy block of 8192 points (its host
+   bytes counted from the shapes first; over 4 GiB it would capture 4096
+   points): every module-level key of the flagship present (the model,
+   ``encoder/__call__/0`` and ``/1``, each encoder module, the head),
+   every value and statistic finite, 16 K2; ``cluster_activations(k=8)``
+   on ``encoder/global`` assigns every valid point to 0..7 and dumps one
+   6-column line per valid point.  (c) ``profile_step``'s rows (1 warm-up
+   and 3 timed calls each) and ``trace_step``'s capture and analysis of 3
+   steps of 4 blocks of 8192 points: the trace's kernel rows hold K2's
+   kernel 64 times a step and K3's map and sum kernels 52 times each,
+   and a positive total.  (d) ``conv_compare``'s 12 flavors at full
+   width, 1 epoch of 3 steps of 2 blocks of 2048 points: each record
+   with a finite loss and an mIoU and oAcc in [0, 1], each flavor's
+   launches as the earlier phases' gather counts give them at 2048
+   points.  (e) ``eval_parity`` cut to 2 training rooms, 1 test room and
+   1 epoch at 8192 points: both arms' probabilities finite with rows
+   summing to 1 and mIoU in [0, 1]; the windowed arm's sweeps launch K2
+   16 times a block, the exact arm none.
 
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
@@ -283,6 +307,15 @@ P16_TIMEOUT = 300           # seconds: each group's rendezvous, collectives
 #                             and join
 SCENE_ARGMAX_MIN = 0.999    # scene_apply vs the sequential run (float32)
 P16_LOGIT_REL = 1e-5        # ... its logits, of max(1, the largest |logit|)
+# phase 17: the analysis and tooling layer
+P17_RECALL_SEEDS = (0, 1)   # verify_search_recall's seeds
+P17_CAPTURE_MAX_BYTES = 4 * 2**30   # host bytes of one block's activations
+P17_WARMUP, P17_ITERS = 1, 3        # profile_step's rows (cut from 2, 10)
+P17_TRACE_KERNELS = ("window_gather_kernel", "window_dslab_map_kernel",
+                     "window_dslab_sum_kernel")
+P17_CC_POINTS, P17_CC_STEPS, P17_CC_BATCH = 2048, 3, 2   # conv_compare
+P17_EP_TRAIN_ROOMS, P17_EP_TEST_ROOMS, P17_EP_EPOCHS = 2, 1, 1  # eval_parity
+P17_EXACT_ARM = {}          # the exact arm gathers by plain indexing
 ECD_TIMED_STEPS = 3         # training steps timed after the counted first
 DSLAB_F32_RTOL = 1e-6       # slab-gradient kernel vs plain, float32
 GRAD_COSINE_MIN = 0.999     # flat gradient, float32 card vs CPU
@@ -3272,6 +3305,348 @@ def phase_parallel(card):
     return plus(total, p16_scene_apply(card))
 
 
+# -- phase 17: the analysis and tooling layer -------------------------------
+
+def p17_recall(card):
+    """17 (a): ``verify_search_recall``'s global contract and production
+    windowed configuration at 8192 points, seeds 0 and 1, held to the JAX
+    script's gates; the windowed search reads its slab with one K2."""
+    from pointcloudsegmentation_tpu_torch import verify_search_recall as vsr
+
+    total = dict(ZERO_COUNTS)
+    sel_mode, ck, pool, window = vsr.PRODUCTION
+    for seed in P17_RECALL_SEEDS:
+        res, counts, _ = run_path(
+            f"global search recall, seed {seed}",
+            lambda: vsr.band_recall(n=N_POINTS, seed=seed, device="cuda"), {})
+        total = plus(total, counts)
+        for band, r in res:
+            log(f"[tools] global seed={seed} band={band}: recall={r:.4f}")
+            check(r >= vsr.GLOBAL_MIN, f"global recall {r} < "
+                  f"{vsr.GLOBAL_MIN} at band {band}, seed {seed}")
+        res, counts, _ = run_path(
+            f"windowed search recall [{sel_mode},ck={ck},P={pool},"
+            f"W={window}], seed {seed}",
+            lambda: vsr.windowed_band_recall(
+                n=N_POINTS, cand_k=ck, seed=seed, sel_mode=sel_mode,
+                ov_pool_size=pool, window=window, device="cuda"),
+            {"window_gather": 1})
+        total = plus(total, counts)
+        for band, r in res:
+            log(f"[tools] windowed seed={seed} band={band}: recall={r:.4f} "
+                f"[{card}]")
+            check(r >= vsr.WINDOWED_MIN, f"windowed recall {r} < "
+                  f"{vsr.WINDOWED_MIN} at band {band}, seed {seed}")
+    return total
+
+
+def activation_bytes(model, *args):
+    """Host bytes ``capture_activations`` would hold for this forward: 4
+    per element of each module's first output tensors, from one forward
+    that records shapes only."""
+    import torch
+
+    sizes, handles = {}, []
+
+    def hook(name):
+        def record(mod, inputs, out):
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            sizes.setdefault(name, sum(o.numel() for o in outs
+                                       if isinstance(o, torch.Tensor)))
+        return record
+
+    try:
+        for name, mod in model.named_modules():
+            handles.append(mod.register_forward_hook(hook(name)))
+        with torch.no_grad():
+            model(*args)
+    finally:
+        for h in handles:
+            h.remove()
+    return 4 * sum(sizes.values())
+
+
+def p17_activations(model, cfg, card):
+    """17 (b): ``capture_activations`` on one toy block through the
+    flagship at full width (bf16): every module-level key, finite values
+    and statistics, 8 clusters of ``encoder/global`` and their dump."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.data import toy
+    from pointcloudsegmentation_tpu_torch.eval import analysis
+    from pointcloudsegmentation_tpu_torch.ops import hierarchy as hier
+    from pointcloudsegmentation_tpu_torch.ops import morton
+
+    n = N_POINTS
+    b = toy.synthetic_room_block(np.random.RandomState(0), n=n,
+                                 num_classes=13, feat_dim=12)
+    args = (torch.from_numpy(b["xyz"]).cuda(),
+            torch.from_numpy(b["feats"]).cuda(),
+            torch.ones(n, dtype=torch.bool, device="cuda"))
+    nbytes_host = activation_bytes(model, *args)
+    log(f"[tools] captured activations of one {n}-point block will hold "
+        f"{nbytes_host} host bytes ({nbytes_host / 2**30:.3f} GiB)")
+    if nbytes_host > P17_CAPTURE_MAX_BYTES:
+        n = N_POINTS // 2
+        args = tuple(a[:n] for a in args)
+        log(f"[tools] over {P17_CAPTURE_MAX_BYTES / 2**30:.0f} GiB: "
+            f"capturing the block's first {n} points instead")
+    (out, acts), counts, secs = run_path(
+        f"capture_activations (flagship, one block of {n} points)",
+        lambda: analysis.capture_activations(model, *args),
+        {"window_gather": 16})
+    want = {"__call__", "encoder/__call__/0", "encoder/__call__/1",
+            "head/__call__"} | {f"encoder/{c}/__call__"
+                                for c, _ in model.encoder.named_children()}
+    check(want <= set(acts), f"module-level keys missing: "
+          f"{sorted(want - set(acts))}")
+    for prefix in ("feats", "embed", "pool", "global", "head_"):
+        check(any(k.startswith(f"encoder/{prefix}") for k in want),
+              f"no encoder/{prefix}* module")
+    bad = [k for k, v in acts.items() if not np.isfinite(v).all()]
+    check(not bad, f"non-finite activations: {bad[:5]}")
+    stats = analysis.activation_stats(acts)
+    check(all(np.isfinite([s["mean"], s["std"], s["min"], s["max"]]).all()
+              for s in stats.values()), "non-finite activation stats")
+    held = sum(v.nbytes for v in acts.values())
+    log(f"[tools] {len(acts)} activations ({len(want)} module-level), "
+        f"{held} host bytes, capture {secs:.2f} s [{card}]")
+    # encoder/global's rows are the points of one pyramid level (the
+    # coarsest): rebuild the model's pyramid for their centers and mask
+    d = cfg.data
+    xs, ms, _ = morton.sort_block(args[0], args[2], d.voxel_sizes[0] / 4.0,
+                                  d.block_size)
+    pyr = hier.build_pyramid(xs, ms, d.voxel_sizes, d.caps, d.block_size,
+                             morton_sorted=True)
+    layer = "encoder/global/__call__"
+    level, = [lv for lv in pyr.levels
+              if lv.xyz.shape[0] == acts[layer].shape[0]]
+    valid = level.mask.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = os.path.join(tmp, "clusters.txt")
+        assign = analysis.cluster_activations(
+            acts, layer, k=8, mask=valid, xyz=level.xyz.cpu().numpy(),
+            dump_path=dump)
+        with open(dump) as f:
+            lines = f.read().splitlines()
+    check(set(np.unique(assign[valid]).tolist()) <= set(range(8)),
+          f"cluster ids {np.unique(assign)}")
+    check(len(lines) == int(valid.sum())
+          and all(len(ln.split()) == 6 for ln in lines),
+          f"cluster dump: {len(lines)} lines for {int(valid.sum())} valid "
+          "points")
+    sizes = np.bincount(assign[valid], minlength=8).tolist()
+    log(f"[tools] 8 clusters of {layer} over its {int(valid.sum())} valid "
+        f"points (of {len(valid)}), sizes {sizes}; dump of {len(lines)} "
+        "6-column lines")
+    del out, acts
+    return counts
+
+
+def p17_profiling(card):
+    """17 (c): ``profile_step``'s rows, then ``trace_step``'s capture and
+    analysis of 3 flagship steps of 4 blocks of 8192 points."""
+    import tempfile
+
+    from pointcloudsegmentation_tpu_torch import profile_step, trace_step
+    from pointcloudsegmentation_tpu_torch.config import s3dis_config
+
+    total = dict(ZERO_COUNTS)
+    fwd, step = per_block(s3dis_config(data_num_points=N_POINTS, data_caps=(
+        N_POINTS // 2, N_POINTS // 8)))
+    steps = 1 + 2 * (P17_WARMUP + P17_ITERS)
+    rows, counts, secs = run_path(
+        f"profile_step ({steps} steps of {TRAIN_BLOCKS} x {N_POINTS} "
+        f"points, {P17_WARMUP + P17_ITERS} encoder forwards)",
+        lambda: profile_step.main([
+            "--num-points", str(N_POINTS), "--batch", str(TRAIN_BLOCKS),
+            "--warmup", str(P17_WARMUP), "--iters", str(P17_ITERS),
+            "--device", "cuda"]),
+        plus(times(step, steps * TRAIN_BLOCKS),
+             times(fwd, P17_WARMUP + P17_ITERS)))
+    total = plus(total, counts)
+    for name, row in rows.items():
+        check(all(v > 0 for v in row.values()), f"{name}: {row}")
+        log(f"[tools] profile_step {name}: median {row['ms_median']:.3f} ms "
+            f"(min {row['ms_min']:.3f}, max {row['ms_max']:.3f}) [{card}]")
+    # trace_step traces its own flagship configuration: 4 blocks of 8192
+    # points
+    _, tstep = per_block(s3dis_config(data_caps=(4096, 1024)))
+    with tempfile.TemporaryDirectory() as tmp:
+        res, counts, secs = run_path(
+            f"trace_step ({2 * trace_step.STEPS} steps, the last "
+            f"{trace_step.STEPS} traced)",
+            lambda: trace_step.main(["--logdir", tmp, "--top", "20",
+                                     "--device", "cuda"]),
+            times(tstep, 2 * trace_step.STEPS * 4))
+    total = plus(total, counts)
+    check(res["what"] == "kernel" and res["total_ms"] > 0,
+          f"trace analysis: {res['what']} total {res['total_ms']}")
+    per_step = {name: sum(n for key, n, _, _ in res["rows"] if name in key)
+                for name in P17_TRACE_KERNELS}
+    want = {"window_gather_kernel": 4 * tstep["window_gather"],
+            "window_dslab_map_kernel": 4 * tstep["window_dslab_map"],
+            "window_dslab_sum_kernel": 4 * tstep["window_dslab"]}
+    log(f"[tools] trace: {res['total_ms']:.3f} ms of kernels a step; "
+        "calls a step " + ", ".join(f"{k} {v:g} (expected {want[k]})"
+                                    for k, v in per_step.items())
+        + f" [{card}]")
+    check(per_step == want, f"trace kernel calls a step {per_step}, "
+          f"expected {want}")
+    return total
+
+
+def flavor_per_block(cfg):
+    """Launches per block of a forward and of a training step of any
+    conv_compare flavor, from the earlier phases' gather counts."""
+    if cfg.model in ECD_KEYS:
+        return ecd_per_block(cfg)
+    if cfg.model == "gpn_seg":
+        return gpn_per_block(cfg)
+    if cfg.model in COMPOSITE_KEYS:
+        return gathers_per_block(cfg, composite_gathers)
+    return per_block(cfg)
+
+
+def p17_conv_compare(card):
+    """17 (d): every conv_compare flavor at full width, 1 epoch of 3 steps
+    of 2 blocks of 2048 points."""
+    import math
+    import tempfile
+
+    from pointcloudsegmentation_tpu_torch import conv_compare
+    from pointcloudsegmentation_tpu_torch.config import s3dis_config
+
+    n, steps, batch = P17_CC_POINTS, P17_CC_STEPS, P17_CC_BATCH
+    total = dict(ZERO_COUNTS)
+    with tempfile.TemporaryDirectory() as tmp:
+        for flavor in conv_compare.FLAVORS:
+            fwd, step = flavor_per_block(s3dis_config(
+                model=flavor, data_num_points=n, data_caps=(n // 2, n // 8)))
+            res, counts, secs = run_path(
+                f"conv_compare {flavor}",
+                lambda: conv_compare.main([
+                    "--flavors", flavor, "--epochs", "1", "--steps",
+                    str(steps), "--batch", str(batch), "--num-points",
+                    str(n), "--out", os.path.join(tmp, f"{flavor}.json"),
+                    "--device", "cuda"]),
+                plus(times(step, steps * batch), times(fwd, steps * batch)))
+            total = plus(total, counts)
+            rec, = res[flavor]
+            check(set(rec) == {"epoch", "loss", "miou", "oacc", "epoch_sec"},
+                  f"{flavor} record {sorted(rec)}")
+            check(math.isfinite(rec["loss"]) and 0 <= rec["miou"] <= 1
+                  and 0 <= rec["oacc"] <= 1, f"{flavor} record {rec}")
+            log(f"[tools] conv_compare {flavor}: loss {rec['loss']:.4f}, "
+                f"mIoU {rec['miou']:.4f}, oAcc {rec['oacc']:.4f}, epoch "
+                f"{rec['epoch_sec']:.2f} s [{card}]")
+    return total
+
+
+def p17_eval_parity(card):
+    """17 (e): eval_parity at a cut depth (2 train rooms, 1 test room, 1
+    epoch, 8192 points): both arms finite, K2 16 times a block of the
+    windowed arm's sweeps, the exact arm as predicted (none)."""
+    import math
+    import tempfile
+
+    from pointcloudsegmentation_tpu_torch import eval_parity
+    from pointcloudsegmentation_tpu_torch.config import s3dis_config
+
+    import numpy as np
+
+    fwd, step = per_block(s3dis_config(data_num_points=N_POINTS))
+    arms, steps, probs_ok = [], [0], []
+    real_arm, real_trainer = eval_parity.eval_arm, eval_parity.Trainer
+    real_interp = eval_parity.interpolate_to_dense
+
+    def checked_interp(sxyz, sprobs, qxyz, **kw):
+        q = real_interp(sxyz, sprobs, qxyz, **kw)
+        probs_ok.append(all(np.isfinite(p).all() and np.abs(
+            p.sum(1) - 1).max() <= PROB_SUM_TOL for p in (sprobs, q)))
+        return q
+
+    class CountedTrainer(real_trainer):
+        def train_step(self, state, batch):
+            steps[0] += 1
+            return super().train_step(state, batch)
+
+    def counted_arm(model, rooms, *a):
+        before = read_counts()
+        rec, preds = real_arm(model, rooms, *a)
+        after = read_counts()
+        sweeps = 2 * len(rooms[0]) + sum(len(r) for r in rooms[1:])
+        arms.append(({k: after[k] - before[k] for k in after}, sweeps,
+                     before))
+        return rec, preds
+
+    eval_parity.eval_arm, eval_parity.Trainer = counted_arm, CountedTrainer
+    eval_parity.interpolate_to_dense = checked_interp
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "eval_parity_torch.json")
+            reset_counts()
+            t0 = time.perf_counter()
+            res = eval_parity.main([
+                "--train-rooms", str(P17_EP_TRAIN_ROOMS), "--test-rooms",
+                str(P17_EP_TEST_ROOMS), "--epochs", str(P17_EP_EPOCHS),
+                "--num-points", str(N_POINTS), "--out", out, "--device",
+                "cuda"])
+            counts = read_counts()
+            secs = time.perf_counter() - t0
+    finally:
+        eval_parity.eval_arm, eval_parity.Trainer = real_arm, real_trainer
+        eval_parity.interpolate_to_dense = real_interp
+    (wcounts, wblocks, trained), (ecounts, _, _) = arms
+    want_train = times(step, steps[0] * TRAIN_BLOCKS)
+    want = {"windowed": times(fwd, wblocks), "exact": P17_EXACT_ARM}
+    log(f"[tools] eval_parity ({P17_EP_TRAIN_ROOMS} train rooms, "
+        f"{steps[0]} steps; {P17_EP_TEST_ROOMS} test room): {secs:.2f} s; "
+        f"training launches {trained} (expected {want_train}), windowed "
+        f"arm {wcounts} over {wblocks} block forwards (expected "
+        f"{want['windowed']}), exact arm {ecounts} (expected "
+        f"{want['exact']})")
+    check(plus(trained, ZERO_COUNTS) == plus(want_train, ZERO_COUNTS),
+          f"eval_parity training launches {trained}, expected {want_train}")
+    for arm, got in (("windowed", wcounts), ("exact", ecounts)):
+        check(got == plus(want[arm], ZERO_COUNTS),
+              f"{arm} arm launches {got}, expected {want[arm]}")
+    check(counts == plus(plus(trained, wcounts), ecounts),
+          f"eval_parity launches {counts} outside the counted parts")
+    for arm in ("windowed", "exact"):
+        r = res[arm]
+        check(all(0 <= m <= 1 for m in r["miou_per_scene"])
+              and 0 <= r["miou"] <= 1 and r["eval_points_per_sec"] > 0,
+              f"{arm} arm {r}")
+        log(f"[tools] eval_parity {arm}: mIoU {r['miou']:.4f}, "
+            f"{r['eval_points_per_sec']:.1f} dense points/s [{card}]")
+    check(len(probs_ok) == 2 * P17_EP_TEST_ROOMS and all(probs_ok),
+          "an arm's probabilities are not finite or do not sum to 1")
+    check(math.isfinite(res["delta_miou"]), f"delta {res['delta_miou']}")
+    log(f"[tools] eval_parity delta_miou (windowed - exact) "
+        f"{res['delta_miou']:+.4f}, speedup {res['speedup']:.3f}")
+    return counts
+
+
+def phase_tools(model, cfg, card):
+    """17: the analysis and tooling layer on the card (see the
+    docstring)."""
+    parts = (("recall", lambda: p17_recall(card)),
+             ("activations", lambda: p17_activations(model, cfg, card)),
+             ("profiling", lambda: p17_profiling(card)),
+             ("conv_compare", lambda: p17_conv_compare(card)),
+             ("eval_parity", lambda: p17_eval_parity(card)))
+    total = dict(ZERO_COUNTS)
+    for name, fn in parts:
+        t0 = time.perf_counter()
+        total = plus(total, fn())
+        log(f"[tools] part {name} in {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -3346,6 +3721,10 @@ def main() -> int:
     parallel_launches = phase_parallel(card)
     log(f"[parallel] phase 16 in {time.perf_counter() - t16:.1f} s")
     entry_launches = plus(entry_launches, parallel_launches)
+    t17 = time.perf_counter()
+    tools_launches = phase_tools(model, cfg, card)
+    log(f"[tools] phase 17 in {time.perf_counter() - t17:.1f} s")
+    entry_launches = plus(entry_launches, tools_launches)
 
     main_row = next(r for r in rows if r["name"].endswith("conv"))
     dmain, fmain = drows[0], frows[0]
@@ -3358,8 +3737,9 @@ def main() -> int:
         f"{fmain['dtype']} (fused conv); launches are the serve sweep's plus "
         f"one training step's, the entry points', the PointNet family's, "
         f"the ECD family's, the GPN family's, the composite models', the "
-        f"Semantic3D pipelines', the Semantic3D scan's and the parallel "
-        f"paths' (every rank's), and the fused-conv bench's; eval "
+        f"Semantic3D pipelines', the Semantic3D scan's, the parallel "
+        f"paths' (every rank's) and the tools', and the fused-conv bench's; "
+        f"eval "
         f"{pps:.1f} "
         f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "
         f"GiB")

@@ -37,6 +37,8 @@ from typing import Dict, List
 
 import torch
 
+from .utils.profiling import by_name
+
 BLOCKS = 4
 POINTS = 8192
 STEPS = 3                  # training steps under the profiler
@@ -70,16 +72,15 @@ def summarize(averages, steps: int, step_s: float) -> Dict:
         elif e.key.startswith("cuda"):
             runtime[e.key][0] += e.count
             runtime[e.key][1] += e.self_cpu_time_total
-    kernels.sort(key=lambda r: -r[2])
-    kernel_us = sum(r[2] for r in kernels)
+    kernel_ms, kernels = by_name(kernels, steps)
+    copy_ms = copy_us / 1e3 / steps
     return dict(
-        kernel_ms=kernel_us / 1e3 / steps,
-        kernel_launches=sum(r[1] for r in kernels) / steps,
-        copy_ms=copy_us / 1e3 / steps,
+        kernel_ms=kernel_ms,
+        kernel_launches=sum(r[1] for r in kernels),
+        copy_ms=copy_ms,
         copies=copy_n / steps,
-        busy=(kernel_us + copy_us) / 1e6 / steps / step_s,
-        kernels=[(k, n / steps, us / 1e3 / steps, us / max(kernel_us, 1e-9))
-                 for k, n, us in kernels],
+        busy=(kernel_ms + copy_ms) / 1e3 / step_s,
+        kernels=kernels,
         runtime=sorted(((k, n / steps, us / 1e3 / steps)
                         for k, (n, us) in runtime.items()),
                        key=lambda r: -r[1]))

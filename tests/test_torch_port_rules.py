@@ -13,8 +13,11 @@ import pytest
 from pointcloudsegmentation_tpu.data import batching as jbatching
 from pointcloudsegmentation_tpu.data import native as jnative
 from pointcloudsegmentation_tpu.data import toy as jtoy
-from pointcloudsegmentation_tpu_torch import (bench_fused_conv, interpolate,
-                                              parity_ab)
+from pointcloudsegmentation_tpu_torch import (bench_fused_conv,
+                                              conv_compare, eval_parity,
+                                              interpolate, parity_ab,
+                                              profile_step, trace_step,
+                                              verify_search_recall)
 from pointcloudsegmentation_tpu_torch.data import batching as tbatching
 from pointcloudsegmentation_tpu_torch.data import native as tnative
 from pointcloudsegmentation_tpu_torch.data import toy as ttoy
@@ -61,7 +64,10 @@ def test_port_and_chip_smoke_import_no_jax():
                  "models.template", "models.dense", "models.context",
                  "data.synth_outdoor", "prepare_data", "ops.interpolate",
                  "eval.interpolate", "parallel.mesh", "parallel.distributed",
-                 "parallel.scene_shard", "dryrun", "halo_study"):
+                 "parallel.scene_shard", "dryrun", "halo_study",
+                 "utils.viz", "utils.profiling", "eval.analysis",
+                 "analysis_compare", "verify_search_recall", "profile_step",
+                 "trace_step", "conv_compare", "eval_parity"):
         assert f"'pointcloudsegmentation_tpu_torch.{name}'" in walked, name
 
 
@@ -156,12 +162,17 @@ def test_bench_cli_defaults_to_the_card(monkeypatch):
     assert seen == {"level": 1, "device": "cuda"}
 
 
-@pytest.mark.parametrize("entry", ["train.cli", "interpolate", "parity_ab"])
+@pytest.mark.parametrize("entry", [
+    "train.cli", "interpolate", "parity_ab", "verify_search_recall",
+    "profile_step", "trace_step", "conv_compare", "eval_parity"])
 def test_user_entry_points_default_to_the_card(entry, monkeypatch):
     """Without ``--device`` the CLIs ask for ``cuda`` and, with no card,
     raise instead of running on the CPU."""
     mod = {"train.cli": cli, "interpolate": interpolate,
-           "parity_ab": parity_ab}[entry]
+           "parity_ab": parity_ab,
+           "verify_search_recall": verify_search_recall,
+           "profile_step": profile_step, "trace_step": trace_step,
+           "conv_compare": conv_compare, "eval_parity": eval_parity}[entry]
     seen = []
     real = cli.require_device
 
@@ -172,7 +183,7 @@ def test_user_entry_points_default_to_the_card(entry, monkeypatch):
     monkeypatch.setattr(mod, "require_device", require_device)
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     argv = {"train.cli": ["--synthetic"], "interpolate": ["--synthetic"],
-            "parity_ab": ["--epochs", "1"]}[entry]
+            "parity_ab": ["--epochs", "1"]}.get(entry, [])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(argv)
     assert seen == ["cuda"]
