@@ -238,6 +238,34 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    1 epoch at 8192 points: both arms' probabilities finite with rows
    summing to 1 and mIoU in [0, 1]; the windowed arm's sweeps launch K2
    16 times a block, the exact arm none.
+18. the encoder's shared overflow edge list, the anchored-conv tail, the
+   head variants and the geometry ops.  (a) The flagship built with
+   ``ov_mode="edges"`` (full width and depth, bf16 compute, seeded
+   weights) trains on phase 7's batches: one counted step of 4 x 8192
+   points (16 K2 and 13 K3 a block, as in slots mode: the edge rows are
+   read by plain indexing), 3 timed steps beside phase 7's slots-mode
+   step, 2 steps under ``torch.profiler`` (PyTorch's index backward's
+   share of kernel time, the top kernels), one step twice from one state
+   bitwise equal (the edge reads'
+   backward is PyTorch's sort-based index accumulation, no float
+   atomics); on one float32 block, every windowed level's search on the
+   card and on the CPU from the same pyramid: the valid edge rows
+   ((center, nbr) pairs) and each band's windowed slot rows equal on at
+   least 0.999, sxyz and d2 of the shared rows within 1e-6, and each
+   level's edge demand against its cap; logits argmax on at least 0.999
+   of the valid points and the flat gradient's cosine at least 0.999.
+   (b) On the windowed neighborhood of level 0's first band of that block
+   (the slots-mode search, pooled overflow), float32 forward and
+   backward card vs CPU with the same weights: ``AnchorConv``, ``GPNConv``
+   (``xyz_feats``, summed, trainable ``pmiu``), ``GPNConvV2`` in both
+   modes, the four ``WLWConv`` forms on ``compute_wlw`` weights,
+   ``DiffFeatsWLW`` feeding ``WLWConv``, ``covariance_feats`` (gradient in
+   xyz) and ``classifier_v2/v4/v5``: outputs within 1e-4 of max(1, the
+   largest |value|), flat gradient cosine at least 0.999; and
+   ``estimate_normals`` forward, |dot| within 1e-4 of 1 where the
+   smallest eigenvalue is isolated.  (c) ``voxel_majority_label`` and
+   ``average_downsample`` at the s3dis voxel sizes and caps: integers
+   equal, floats within 1e-6.
 
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
@@ -316,6 +344,15 @@ P17_TRACE_KERNELS = ("window_gather_kernel", "window_dslab_map_kernel",
 P17_CC_POINTS, P17_CC_STEPS, P17_CC_BATCH = 2048, 3, 2   # conv_compare
 P17_EP_TRAIN_ROOMS, P17_EP_TEST_ROOMS, P17_EP_EPOCHS = 2, 1, 1  # eval_parity
 P17_EXACT_ARM = {}          # the exact arm gathers by plain indexing
+# phase 18: the overflow edge list, the conv tail and the helpers
+EDGE_TIMED_STEPS = 3        # edges-mode train steps timed after the first
+EDGE_ROW_MIN = 0.999        # edge rows, slot rows, argmax: card vs CPU
+EDGE_GEO_TOL = 1e-6         # the shared edge rows' sxyz and d2
+P18_PROFILED_STEPS = 2      # edges-mode train steps under torch.profiler
+P18_TOP = 8                 # ... kernels listed by device time
+P18_ANCHORS = 8             # anchors of the tail's anchored convs
+P18_TAIL_TOL = 1e-4         # tail outputs, of max(1, the largest |value|)
+P18_HELPER_TOL = 1e-6       # average_downsample's centers and features
 ECD_TIMED_STEPS = 3         # training steps timed after the counted first
 DSLAB_F32_RTOL = 1e-6       # slab-gradient kernel vs plain, float32
 GRAD_COSINE_MIN = 0.999     # flat gradient, float32 card vs CPU
@@ -494,7 +531,7 @@ def path_neighborhoods(model, cfg, xyz, mask):
         specs = [(c.radius, c.min_radius, c.k) for c in stage.convs]
         res = enc._stage_neighborhoods(pyr.levels[s].xyz, pyr.levels[s].mask,
                                        specs, pyr.level_sorted(s))
-        out.extend((s, spec, nb) for spec, (nb, _) in res.items())
+        out.extend((s, spec, nb) for spec, (nb, *_) in res.items())
     return out
 
 
@@ -3647,6 +3684,525 @@ def phase_tools(model, cfg, card):
     return total
 
 
+# -- phase 18: the overflow edge list, the conv tail and the helpers --------
+
+def p18_move(obj, device):
+    """A neighborhood, pyramid or edge list (dicts, tuples and frozen
+    dataclasses of tensors) with every tensor on ``device``."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: p18_move(v, device) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(p18_move(v, device) for v in obj))
+    if isinstance(obj, tuple):
+        return tuple(p18_move(v, device) for v in obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: p18_move(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj)})
+    return obj
+
+
+def p18_block(batch, cfg):
+    """Block 0 of a card batch, Morton-sorted on the CPU, and its pyramid
+    (CPU): (xyz, feats, mask, labels, pyramid)."""
+    from pointcloudsegmentation_tpu_torch.ops import hierarchy, morton
+
+    d = cfg.data
+    xyz, feats, mask, labels = (batch[k][0].cpu() for k in
+                                ("xyz", "feats", "mask", "labels"))
+    xs, ms, _, fs, ls = morton.sort_block(xyz, mask, d.voxel_sizes[0] / 4,
+                                          d.block_size, feats, labels)
+    pyr = hierarchy.build_pyramid(xs, ms, d.voxel_sizes, d.caps,
+                                  d.block_size, morton_sorted=True)
+    return xs, fs, ms, ls, pyr
+
+
+def p18_edge_rows(e_h, e_d, n):
+    """The share of the valid edge rows, as (center, nbr) pairs, that the
+    card's and the CPU's lists share (a pair one list lacks shifts every
+    later row, so rows are matched by pair, not by position), and the
+    largest |d| of sxyz and d2 over the shared pairs."""
+    import torch
+
+    keys = []
+    for e in (e_h, e_d):
+        k = (e.center.long() * n + e.nbr.long())[e.mask]
+        order = torch.argsort(k)
+        keys.append((k[order], e.sxyz[e.mask][order], e.d2[e.mask][order]))
+    (kh, sh, dh), (kd, sd, dd) = keys
+    pos = torch.searchsorted(kh, kd).clamp(max=max(len(kh) - 1, 0))
+    hit = kh[pos] == kd if len(kh) else torch.zeros_like(kd, dtype=bool)
+    share = float(hit.sum()) / max(len(kh), len(kd), 1)
+    diffs = torch.cat([(sd[hit] - sh[pos[hit]]).reshape(-1),
+                       dd[hit] - dh[pos[hit]], sd.new_zeros(1)])
+    return share, float(diffs.abs().max())
+
+
+def p18_searches(enc, pyr, card):
+    """18 (a): every windowed level's edges-mode search on the card and on
+    the CPU from the same (CPU-built) pyramid: the valid edge rows
+    (``p18_edge_rows``) and each band's windowed slot rows (lidx and
+    wmask) equal on at least EDGE_ROW_MIN, sxyz and d2 of the shared rows
+    within EDGE_GEO_TOL; each level's edge demand (the rows a cap of 16 N
+    keeps) against its cap.  Returns the card's launches."""
+    from pointcloudsegmentation_tpu_torch.models.pointnet import (
+        CAND_K, WIN_CAND_K)
+    from pointcloudsegmentation_tpu_torch.ops import search
+
+    total = dict(ZERO_COUNTS)
+    for s in range(len(enc.arch.stages)):
+        lv = pyr.levels[s]
+        n = lv.xyz.shape[0]
+        if n % enc.win_tile or n < 4 * enc.win_tile:
+            continue
+        ratio = 3 if s == 0 else 5
+        args = (enc.stage_specs(s), True, ratio)
+        bands = tuple((mn, mx, k) for (mx, mn, k) in dict.fromkeys(args[0]))
+        host = enc._stage_neighborhoods(lv.xyz, lv.mask, *args)
+
+        def card_search():
+            x, m = lv.xyz.cuda(), lv.mask.cuda()
+            res = enc._stage_neighborhoods(x, m, *args)
+            demand = search.windowed_multi_band_neighbors(
+                x, m, bands, tile=enc.win_tile, window=enc.win_window,
+                cand_k=search.effective_win_cand_k(WIN_CAND_K, CAND_K,
+                                                   bands, n),
+                ov_slots=8, chunk=min(enc.search_chunk, n), ov_mode="edges",
+                edge_ratio=16)[0][1].mask.sum()
+            return p18_move(res, "cpu"), int(demand)
+
+        (dev, demand), counts, secs = run_path(
+            f"L{s} edges-mode search ({n} points) and its demand",
+            card_search, {"window_gather": 2})
+        total = plus(total, counts)
+        e_h, e_d = next(iter(host.values()))[2], next(iter(dev.values()))[2]
+        share, geo = p18_edge_rows(e_h, e_d, n)
+        log(f"[edges] L{s}: {int(e_d.mask.sum())} of {ratio * n} edge rows "
+            f"filled (CPU {int(e_h.mask.sum())}), demand {demand}; card vs "
+            f"CPU rows shared {share:.6f} (need >= {EDGE_ROW_MIN}), sxyz/d2 "
+            f"max |d| {geo:.3e} (need <= {EDGE_GEO_TOL}), {secs:.2f} s")
+        check(share >= EDGE_ROW_MIN, f"L{s} edge rows shared {share}")
+        check(geo <= EDGE_GEO_TOL, f"L{s} edge geometry |d| {geo}")
+        for spec, (nb_h, _, _) in host.items():
+            nb_d = dev[spec][0]
+            check(nb_d.ov_idx.shape[1] == 0, "edges mode kept overflow slots")
+            rows = ((nb_h.lidx == nb_d.lidx) & (nb_h.wmask == nb_d.wmask)
+                    ).all(dim=1)
+            slot_share = float(rows.double().mean())
+            log(f"[edges] L{s} band {spec}: windowed slot rows equal card "
+                f"vs CPU {slot_share:.6f}")
+            check(slot_share >= EDGE_ROW_MIN,
+                  f"L{s} {spec} windowed rows equal {slot_share}")
+    return total
+
+
+def p18_flagship(cfg, card, slots):
+    """18 (a): the flagship with ``ov_mode="edges"`` at full width and
+    depth (bf16 compute, seeded weights): a counted Trainer step of 4 toy
+    blocks of 8192 points, EDGE_TIMED_STEPS timed ones beside phase 7's
+    slots-mode step, P18_PROFILED_STEPS under ``torch.profiler`` (the
+    index backward's share of kernel time, the top kernels), one step
+    twice from one state bitwise equal; on one
+    float32 block, the searches (``p18_searches``), logits argmax and the
+    flat gradient card vs CPU.  Returns (launches, the block)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from pointcloudsegmentation_tpu_torch import profile_train
+    from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    total = dict(ZERO_COUNTS)
+    batches = make_train_batches("cuda")
+    fwd, step = per_block(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, device="cuda", ov_mode="edges")
+    check(trainer.model.encoder.ov_mode == "edges", "ov_mode not set")
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    log(f"[edges] pointnet_s3dis ov_mode=edges {cfg.compute_dtype}: "
+        f"{trainer.num_params} params; launches per block {fwd} forward, "
+        f"{step} training step")
+    (state, m), counts, first = run_path(
+        f"edges train step ({TRAIN_BLOCKS} x {N_POINTS} points)",
+        lambda: trainer.train_step(state, batches[0]),
+        times(step, TRAIN_BLOCKS))
+    total = plus(total, counts)
+    loss = float(m["loss"])
+    check(math.isfinite(loss) and int(m["skipped"]) == 0,
+          f"edges train step loss {loss}")
+
+    def timed():
+        st = state
+        for i in range(EDGE_TIMED_STEPS):
+            st, mm = trainer.train_step(st, batches[i % 2])
+        float(mm["loss"])
+        return st, mm
+
+    (state, m), counts, secs = run_path(
+        f"edges {EDGE_TIMED_STEPS} timed train steps", timed,
+        times(step, TRAIN_BLOCKS * EDGE_TIMED_STEPS))
+    total = plus(total, counts)
+    check(math.isfinite(float(m["loss"])), "edges timed step loss")
+    valid = int(batches[0]["mask"].sum())
+    step_s, pps = secs / EDGE_TIMED_STEPS, valid * EDGE_TIMED_STEPS / secs
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    slots_pps, slots_peak = slots
+    log(f"[edges] first step loss {loss:.5f} in {first:.2f} s (set-up "
+        f"included); {step_s:.4f} s a step, {pps:.1f} train points/s, peak "
+        f"{peak:.3f} GiB; phase 7's slots step {valid / slots_pps:.4f} s, "
+        f"{slots_pps:.1f} train points/s, peak {slots_peak:.3f} GiB "
+        f"[{card}]")
+
+    def profiled():
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            st = state
+            for i in range(P18_PROFILED_STEPS):
+                st, _ = trainer.train_step(st, batches[i % 2])
+            torch.cuda.synchronize()
+        return prof
+
+    prof, counts, _ = run_path(
+        f"edges {P18_PROFILED_STEPS} profiled train steps", profiled,
+        times(step, TRAIN_BLOCKS * P18_PROFILED_STEPS))
+    total = plus(total, counts)
+    s = profile_train.summarize(prof.key_averages(), P18_PROFILED_STEPS,
+                                step_s)
+    index_ms = sum(ms for key, _, ms, _ in s["kernels"]
+                   if "indexing_backward" in key)
+    log(f"[edges] profiled step: kernels {s['kernel_ms']:.2f} ms in "
+        f"{s['kernel_launches']:.0f} launches, busy {s['busy']:.3f} of the "
+        f"{step_s:.4f} s step; PyTorch's index backward {index_ms:.3f} ms, "
+        f"{index_ms / max(s['kernel_ms'], 1e-9):.3f} of kernel time; top "
+        "kernels (calls, ms, share):")
+    for key, n, ms, share in s["kernels"][:P18_TOP]:
+        log(f"    {n:7.1f} {ms:8.3f} {share:6.3f}  {key[:100]}")
+
+    def twice():
+        a, _ = trainer.train_step(state, batches[0])
+        b, _ = trainer.train_step(state, batches[0])
+        return a, b
+
+    (a, b), counts, _ = run_path("edges step twice from one state", twice,
+                                 times(step, 2 * TRAIN_BLOCKS))
+    total = plus(total, counts)
+    for f in ("params", "mu", "nu", "count"):
+        check(torch.equal(getattr(a, f), getattr(b, f)),
+              f"two runs of one edges step differ in {f}")
+    log("[edges] one step twice from one state: params, mu, nu and count "
+        "bitwise equal")
+    del trainer, state, m, a, b
+    torch.cuda.empty_cache()
+
+    # float32, one block, card vs CPU
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    block = p18_block(batches[0], cfg)
+    host_model = build_model(f32, torch.Generator().manual_seed(0), "cpu",
+                             ov_mode="edges")
+    total = plus(total, p18_searches(host_model.encoder, block[4], card))
+    one = {k: v[:1].cpu() for k, v in batches[0].items()}
+    args = [one[k][0] for k in ("xyz", "feats", "mask")]
+    card_model = build_model(f32, torch.Generator().manual_seed(0), "cuda",
+                             ov_mode="edges")
+    with torch.inference_mode():
+        want = host_model(*args)
+    def card_forward():
+        with torch.inference_mode():
+            return card_model(*(a.cuda() for a in args)).cpu()
+
+    got, counts, _ = run_path("edges float32 forward, one block",
+                              card_forward, fwd)
+    total = plus(total, counts)
+    ok = args[2]
+    agree = float((got.argmax(1) == want.argmax(1))[ok].double().mean())
+    log(f"[edges] float32 logits card vs CPU: argmax agreement {agree:.6f} "
+        f"over {int(ok.sum())} valid points (need >= {EDGE_ROW_MIN}), max "
+        f"|d| {(got - want).abs().max():.3e} [{card}]")
+    check(bool(torch.isfinite(got).all()), "edges float32 logits")
+    check(agree >= EDGE_ROW_MIN, f"edges argmax agreement {agree}")
+    del host_model, card_model
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(f32, device=dev, ov_mode="edges")
+        st = tr.init_state(torch.Generator().manual_seed(0))
+        if dev == "cuda":
+            (lo, g), counts, _ = run_path(
+                "edges float32 loss and grad, one block",
+                lambda: tr.loss_and_grad(st, one, train=False), step)
+            total = plus(total, counts)
+        else:
+            lo, g = tr.loss_and_grad(st, one, train=False)
+        grads[dev] = (float(lo), g.double().cpu())
+        del tr, st
+    gc, gh = grads["cuda"][1], grads["cpu"][1]
+    cos = float(gc @ gh / (gc.norm() * gh.norm()))
+    log(f"[edges] float32 flat gradient card vs CPU: cosine {cos:.6f} (need "
+        f">= {GRAD_COSINE_MIN}), loss {grads['cuda'][0]:.6f} vs "
+        f"{grads['cpu'][0]:.6f} [{card}]")
+    check(cos >= GRAD_COSINE_MIN, f"edges gradient cosine {cos}")
+    return total, block
+
+
+def p18_chain(f, m, out):
+    """``DiffFeatsWLW`` feeding ``WLWConv`` (its sum form on the
+    features) as one module, for phase 18 (b)."""
+    from torch import nn
+
+    from pointcloudsegmentation_tpu_torch.models import variants as V
+
+    class Chain(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.wlw = V.DiffFeatsWLW(f, m, (16,))
+            self.conv = V.WLWConv(f, m, out, mode="sum", use_xyz=False)
+
+        def forward(self, sxyz, feats, nbr):
+            return self.conv(sxyz, feats, nbr, self.wlw(feats, nbr))
+
+    return Chain()
+
+
+def p18_tail_cases(f):
+    """(name, module factory, call(module, sxyz, feats, nbr, pmiu), expected
+    K2 and K3 launches of one forward and backward) of phase 18 (b)."""
+    from pointcloudsegmentation_tpu_torch.models import layers as L
+    from pointcloudsegmentation_tpu_torch.models import variants as V
+
+    m = P18_ANCHORS
+    one, none = {"window_gather": 1, "window_dslab": 1,
+                 "window_dslab_map": 1}, {}
+    plain = lambda mod, sx, x, nb, pm: mod(sx, x, nb)  # noqa: E731
+    first = lambda mod, sx, x, nb, pm: mod(sx, x, nb)[0]  # noqa: E731
+
+    def wlw(mod, sx, x, nb, pm):
+        return mod(sx, x, nb, V.compute_wlw(sx, nb, pm))
+
+    cases = [("AnchorConv", lambda: L.AnchorConv(f, 32, m, 4), plain, one),
+             ("GPNConv xyz_feats summed, trainable pmiu",
+              lambda: L.GPNConv(f, m, 16, mode="xyz_feats",
+                                pmiu_trainable=True), first, one),
+             ("GPNConvV2 xyz", lambda: V.GPNConvV2(f, m, 16, mode="xyz"),
+              first, none),
+             ("GPNConvV2 feats", lambda: V.GPNConvV2(f, m, 16, mode="feats"),
+              first, one)]
+    for mode in ("sum", "concat"):
+        for use_xyz in (True, False):
+            cases.append((f"WLWConv {mode} {'xyz' if use_xyz else 'feats'}",
+                          lambda mode=mode, use_xyz=use_xyz: V.WLWConv(
+                              f, m, 16, mode=mode, use_xyz=use_xyz), wlw,
+                          none if use_xyz else one))
+    cases.append(("DiffFeatsWLW -> WLWConv", lambda: p18_chain(f, m, 16),
+                  plain, times(one, 2)))
+    return cases
+
+
+def p18_compare(name, out, ref, grad, grad_ref, counts, card):
+    """Phase 18 (b)'s gates on one module: outputs within P18_TAIL_TOL of
+    max(1, the largest |CPU value|), flat gradient cosine at least
+    GRAD_COSINE_MIN."""
+    import torch
+
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((out - ref).abs().max()) / scale
+    cos = float(grad @ grad_ref / (grad.norm() * grad_ref.norm()))
+    launched = ", ".join(f"{k} {v}" for k, v in counts.items())
+    log(f"[tail] {name}: output max |d| {err:.3e} of scale {scale:.3g} "
+        f"(need <= {P18_TAIL_TOL}), gradient cosine {cos:.6f}; launches "
+        f"{launched or 'none'} [{card}]")
+    check(bool(torch.isfinite(out).all()), f"{name} output not finite")
+    check(err <= P18_TAIL_TOL, f"{name} output |d| {err}")
+    check(cos >= GRAD_COSINE_MIN, f"{name} gradient cosine {cos}")
+
+
+def p18_tail(block, cfg, card):
+    """18 (b): each tail module on the windowed neighborhood of level 0's
+    first band of one toy block (the flagship's slots-mode search: pooled
+    overflow slots), forward and backward in float32 with the same weights
+    (Glorot draws from seed 0 on the CPU) on the card and on the CPU;
+    ``covariance_feats`` (its gradient in xyz), ``estimate_normals`` (up to
+    sign where the smallest eigenvalue is isolated; forward only: an
+    eigenvector's gradient is unbounded where eigenvalues nearly repeat),
+    ``classifier_v2/v4/v5``.  Returns the card's launches."""
+    import copy
+
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.models import layers as L
+    from pointcloudsegmentation_tpu_torch.ops import anchors as anchor_gen
+    from pointcloudsegmentation_tpu_torch.ops import geometry
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    total = dict(ZERO_COUNTS)
+    xs, fs, ms, _, pyr = block
+    enc = build_model(cfg, None, "cpu").encoder
+    specs = enc.stage_specs(0)
+    res = enc._stage_neighborhoods(xs, ms, specs, True)
+    nb_h, sx_h, _ = res[specs[0]]
+    nb_d, sx_d = p18_move(nb_h, "cuda"), sx_h.cuda()
+    check(nb_h.pool_idx is not None, "level 0 is not windowed")
+    f = fs.shape[1]
+    pmiu = torch.from_numpy(anchor_gen.cached_sphere_anchors(P18_ANCHORS))
+    gen = torch.Generator().manual_seed(7)
+    for i, (name, make, call, expect) in enumerate(p18_tail_cases(f)):
+        mod_h = make()
+        L.init_glorot_(mod_h, torch.Generator().manual_seed(i))
+        mod_d = copy.deepcopy(mod_h).cuda()
+        outs, grads = {}, {}
+        for side, dev, mod, nb, sx in (("host", "cpu", mod_h, nb_h, sx_h),
+                                       ("card", "cuda", mod_d, nb_d, sx_d)):
+            x = fs.to(dev).clone().requires_grad_(True)
+
+            def run():
+                out = call(mod, sx, x, nb, pmiu.to(dev))
+                if side == "host":
+                    outs["w"] = torch.randn(out.shape, generator=gen)
+                (out * outs["w"].to(dev)).sum().backward()
+                return out.detach().cpu()
+
+            if side == "host":
+                outs[side] = run()
+            else:
+                outs[side], counts, _ = run_path(f"tail {name}", run, expect)
+                total = plus(total, counts)
+            # the xyz-only forms read no features
+            grads[side] = torch.cat([
+                t.grad.reshape(-1).double().cpu() for t in
+                list(mod.parameters()) + [x] if t.grad is not None])
+        p18_compare(name, outs["card"], outs["host"], grads["card"],
+                    grads["host"], counts, card)
+
+    # the geometry ops on the same neighborhood
+    outs, grads = {}, {}
+    w = torch.randn(xs.shape[0], 9, generator=gen)
+    for side, dev, nb in (("host", "cpu", nb_h), ("card", "cuda", nb_d)):
+        x = xs.to(dev).clone().requires_grad_(True)
+
+        def run():
+            out = geometry.covariance_feats(x, nb)
+            (out * w.to(dev)).sum().backward()
+            return out.detach().cpu()
+
+        if side == "host":
+            outs[side] = run()
+        else:
+            outs[side], counts, _ = run_path(
+                "tail covariance_feats", run,
+                {"window_gather": 1, "window_dslab": 1,
+                 "window_dslab_map": 1})
+            total = plus(total, counts)
+        grads[side] = x.grad.reshape(-1).double().cpu()
+    p18_compare("covariance_feats", outs["card"], outs["host"],
+                grads["card"], grads["host"], counts, card)
+    n_h = geometry.estimate_normals(xs, nb_h)
+    n_d, counts, _ = run_path(
+        "tail estimate_normals",
+        lambda: geometry.estimate_normals(xs.cuda(), nb_d).cpu(),
+        {"window_gather": 1})
+    total = plus(total, counts)
+    ev = torch.linalg.eigvalsh(geometry._local_covariance(xs, nb_h).double())
+    has = nb_h.mask.any(1)
+    iso = has & (ev[:, 1] - ev[:, 0] > 1e-3 * ev[:, 2].clamp(min=1e-12))
+    dot = (n_d * n_h).sum(1).abs()
+    worst = float((1 - dot[iso]).max())
+    log(f"[tail] estimate_normals: |dot| card vs CPU >= {1 - worst:.6f} on "
+        f"the {int(iso.sum())} of {int(has.sum())} points whose smallest "
+        f"eigenvalue is isolated (need >= {1 - P18_TAIL_TOL}); zeros "
+        f"without a neighbor: {not bool(n_d[~has].any())} [{card}]")
+    check(worst <= P18_TAIL_TOL and not bool(n_d[~has].any()),
+          f"estimate_normals |dot| {1 - worst}")
+
+    # the head variants (no neighborhood: dense rows)
+    n = xs.shape[0]
+    feats = torch.randn(n, 64, generator=gen)
+    pfeats = torch.randn(n, 32, generator=gen)
+    heads = (("classifier_v2", lambda: L.classifier_v2(13, 64), False),
+             ("classifier_v4", lambda: L.classifier_v4(13, 64, 32), True),
+             ("classifier_v5", lambda: L.classifier_v5(13, 64, 32), True))
+    for i, (name, make, local) in enumerate(heads):
+        mod_h = make()
+        L.init_glorot_(mod_h, torch.Generator().manual_seed(100 + i))
+        mod_d = copy.deepcopy(mod_h).cuda()
+        w = torch.randn(n, 13, generator=gen)
+        outs, grads = {}, {}
+        for side, dev, mod in (("host", "cpu", mod_h),
+                               ("card", "cuda", mod_d)):
+            x = feats.to(dev).clone().requires_grad_(True)
+            out = mod(x, pfeats.to(dev) if local else None)
+            (out * w.to(dev)).sum().backward()
+            outs[side] = out.detach().cpu()
+            grads[side] = torch.cat([p.grad.reshape(-1).double().cpu()
+                                     for p in mod.parameters()]
+                                    + [x.grad.reshape(-1).double().cpu()])
+        p18_compare(name, outs["card"], outs["host"], grads["card"],
+                    grads["host"], {}, card)
+    return total
+
+
+def p18_helpers(block, cfg, card):
+    """18 (c): ``voxel_majority_label`` and ``average_downsample`` at the
+    s3dis voxel sizes and caps on the sorted block, card vs CPU: integers
+    equal, floats within P18_HELPER_TOL.  No kernel runs."""
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.ops import hierarchy, voxelize
+
+    xs, fs, ms, ls, pyr = block
+    d = cfg.data
+    seg = pyr.seg[0]
+    sides = (("host", "cpu"), ("card", "cuda"))
+    lab = {side: voxelize.voxel_majority_label(
+        ls.to(dev), ms.to(dev), seg.to(dev), d.caps[0], d.num_classes).cpu()
+        for side, dev in sides}
+    check(torch.equal(lab["host"], lab["card"]), "voxel_majority_label")
+    worst = 0.0
+    cur = {side: (xs.to(dev), fs.to(dev), ms.to(dev)) for side, dev in sides}
+    for vs, cap in zip(d.voxel_sizes, d.caps):
+        for side in cur:
+            cur[side] = hierarchy.average_downsample(*cur[side], vs,
+                                                     d.block_size, cap)
+        (cx, cf, cm), (gx, gf, gm) = cur["host"], (
+            t.cpu() for t in cur["card"])
+        check(torch.equal(cm, gm), f"average_downsample mask at {vs}")
+        worst = max(worst, float((cx - gx).abs().max()),
+                    float((cf - gf).abs().max()))
+    log(f"[helpers] voxel_majority_label over {d.caps[0]} voxels equal card "
+        f"vs CPU ({int((lab['host'] > 0).sum())} non-zero); "
+        f"average_downsample at {d.voxel_sizes} / caps {d.caps}: masks "
+        f"equal, centers and "
+        f"features max |d| {worst:.3e} (need <= {P18_HELPER_TOL}) [{card}]")
+    check(worst <= P18_HELPER_TOL, f"average_downsample |d| {worst}")
+
+
+def phase_edges(card, slots):
+    """18: the encoder's shared overflow edge list, the anchored-conv tail,
+    the head variants and the geometry ops on the card (see the
+    docstring).  ``slots`` is phase 7's (train points/s, peak GiB)."""
+    import dataclasses
+
+    from pointcloudsegmentation_tpu_torch.config import s3dis_config
+
+    cfg = s3dis_config()
+    t0 = time.perf_counter()
+    total, block = p18_flagship(cfg, card, slots)
+    log(f"[edges] part flagship in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    total = plus(total, p18_tail(block, dataclasses.replace(
+        cfg, compute_dtype="float32"), card))
+    log(f"[edges] part tail in {time.perf_counter() - t0:.1f} s")
+    p18_helpers(block, cfg, card)
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -3725,6 +4281,10 @@ def main() -> int:
     tools_launches = phase_tools(model, cfg, card)
     log(f"[tools] phase 17 in {time.perf_counter() - t17:.1f} s")
     entry_launches = plus(entry_launches, tools_launches)
+    t18 = time.perf_counter()
+    edge_launches = phase_edges(card, (train_pps, peak))
+    log(f"[edges] phase 18 in {time.perf_counter() - t18:.1f} s")
+    entry_launches = plus(entry_launches, edge_launches)
 
     main_row = next(r for r in rows if r["name"].endswith("conv"))
     dmain, fmain = drows[0], frows[0]
@@ -3738,7 +4298,8 @@ def main() -> int:
         f"one training step's, the entry points', the PointNet family's, "
         f"the ECD family's, the GPN family's, the composite models', the "
         f"Semantic3D pipelines', the Semantic3D scan's, the parallel "
-        f"paths' (every rank's) and the tools', and the fused-conv bench's; "
+        f"paths' (every rank's), the tools' and the edge list's and conv "
+        f"tail's, and the fused-conv bench's; "
         f"eval "
         f"{pps:.1f} "
         f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "

@@ -6,9 +6,10 @@ one: ``params/encoder/feats0/fc_0_nbr/kernel`` becomes
 ``encoder.feats0.fc_0_nbr.weight``.  Flax ``Dense`` kernels are [in, out];
 torch ``Linear`` weights are [out, in], so kernels are transposed.  The
 other leaves, biases, ``MaskedBatchNorm``'s ``scale``, the ECD convs'
-``edge_weights_trans``, the GPN convs' ``pw``, ``ProbsDiffusion``'s
-``alpha`` and the template's trainable anchors (``{conv}_anchor``), keep
-their names and flax shapes.
+``edge_weights_trans``, the GPN convs' ``pw`` and trainable ``pmiu``,
+``ProbsDiffusion``'s ``alpha``, ``AnchorConv``'s ``anchor`` and the
+template's trainable anchors (``{conv}_anchor``), keep their names and
+flax shapes.
 
 The trainer keeps every parameter in one flat float32 vector laid out as
 ``jax.flatten_util.ravel_pytree`` lays out the flax tree (``ravel_layout``):
@@ -30,8 +31,10 @@ _FLAX_LEAF = {v: k for k, v in _LEAF.items()}
 
 def _kept(name: str) -> bool:
     """Leaves whose flax and torch names are their own: ``ProbsDiffusion``'s
-    ``alpha`` and the template's trainable anchors (``{conv}_anchor``)."""
-    return name == "alpha" or name.endswith("_anchor")
+    ``alpha``, the template's trainable anchors (``{conv}_anchor``),
+    ``AnchorConv``'s ``anchor`` and the trainable ``pmiu`` of the GPN
+    convs."""
+    return name in ("alpha", "anchor", "pmiu") or name.endswith("_anchor")
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -51,7 +54,8 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """Nested mapping of numpy arrays (with or without the top-level
     ``params`` collection) -> {torch key: float32 tensor}.  Raises on a leaf
     that is not a Dense kernel or bias, a batch-norm scale, an
-    ``edge_weights_trans``, a ``pw``, an ``alpha`` or an ``*_anchor``."""
+    ``edge_weights_trans``, a ``pw``, a ``pmiu``, an ``alpha``, an
+    ``anchor`` or an ``*_anchor``."""
     out = {}
     for path, leaf in _flatten(_params_tree(params)):
         name = _LEAF.get(path[-1]) or (path[-1] if _kept(path[-1]) else None)

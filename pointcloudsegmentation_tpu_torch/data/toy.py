@@ -1,8 +1,7 @@
-"""Synthetic S3DIS-like room blocks for tests and benchmarks (the port's
-own copy of ``pointcloudsegmentation_tpu.data.toy``, numpy only, cut to the
-room blocks the port calls: no two-class toy clouds).  The same seed gives
-the same arrays as the JAX package's generators with ``kind="room"`` and
-as its ``dense_batches``."""
+"""Synthetic datasets for tests and benchmarks (the port's own copy of
+``pointcloudsegmentation_tpu.data.toy``, numpy only): S3DIS-like room
+blocks, the two-class toy cloud and the dense pipeline's batches.  The
+same seed gives the same arrays as the JAX package's generators."""
 from __future__ import annotations
 
 from typing import Dict, Iterator
@@ -10,6 +9,27 @@ from typing import Dict, Iterator
 import numpy as np
 
 from .batching import pad_block, stack_blocks
+
+
+def toy_two_class_block(rng: np.random.RandomState, n: int = 2048,
+                        block: float = 3.0) -> Dict:
+    """A plane (class 0) + a sphere cap (class 1), with rgb-ish features —
+    separable only through neighborhood geometry."""
+    n_plane = n // 2
+    plane = rng.uniform(-block / 2, block / 2, (n_plane, 3)).astype(np.float32)
+    plane[:, 2] = 0.02 * rng.randn(n_plane)
+    theta = rng.uniform(0, 2 * np.pi, n - n_plane)
+    phi = rng.uniform(0, np.pi / 2, n - n_plane)
+    r = 0.8
+    sphere = np.stack([r * np.sin(phi) * np.cos(theta),
+                       r * np.sin(phi) * np.sin(theta),
+                       r * np.cos(phi) + 0.2], 1).astype(np.float32)
+    xyz = np.concatenate([plane, sphere], 0)
+    labels = np.concatenate([np.zeros(n_plane, np.int32),
+                             np.ones(n - n_plane, np.int32)])
+    feats = rng.rand(n, 3).astype(np.float32) * 0.1  # uninformative colors
+    perm = rng.permutation(n)
+    return {"xyz": xyz[perm], "feats": feats[perm], "labels": labels[perm]}
 
 
 def synthetic_room_block(rng: np.random.RandomState, n: int = 8192,
@@ -63,14 +83,21 @@ def dense_batches(num_batches: int, batch_size: int, num_points: int = 512,
 
 
 def toy_batches(num_batches: int, batch_size: int, num_points: int = 2048,
-                seed: int = 0, num_classes: int = 13,
+                seed: int = 0, kind: str = "room", num_classes: int = 13,
                 feat_dim: int = 12) -> Iterator[Dict]:
-    """``num_batches`` batches of ``batch_size`` padded room blocks."""
+    """``num_batches`` batches of ``batch_size`` padded blocks: room blocks
+    (``kind="room"``) or two-class toy clouds (``kind="toy"``, 3 features,
+    labels 0 and 1).  The default is ``"room"``, which every caller in
+    either package passes; the JAX function's default is ``"toy"``."""
+    if kind not in ("room", "toy"):
+        raise ValueError(f"kind must be room or toy: {kind}")
     rng = np.random.RandomState(seed)
+    gen = (toy_two_class_block if kind == "toy" else
+           lambda r, n: synthetic_room_block(r, n, num_classes, feat_dim))
     for _ in range(num_batches):
         blocks = []
         for _ in range(batch_size):
-            b = synthetic_room_block(rng, num_points, num_classes, feat_dim)
+            b = gen(rng, num_points)
             blocks.append(pad_block(b["xyz"], b["feats"], b["labels"],
                                     num_points, rng))
         yield stack_blocks(blocks)

@@ -1,6 +1,7 @@
 """Gather-minimal PointNet conv (mirror of
-``pointcloudsegmentation_tpu.models.fast_conv.PointNetConvFast`` on its
-windowed-plus-pool path, with the search's sxyz or the layer's xyz fold).
+``pointcloudsegmentation_tpu.models.fast_conv.PointNetConvFast``: windowed
+slots with pooled or per-point overflow slots or a shared overflow edge
+list, with the search's sxyz or the layer's xyz fold).
 
 Every Dense over the growth concat ``[cen ‖ nbr ‖ sxyz ‖ c_1 …]`` is split
 into per-source projections; all layers' neighbor projections come from the
@@ -53,16 +54,43 @@ class PointNetConvFast(nn.Module):
                 self.add_module(f"fc_{i}_h{j}", Dense(self.dims[j], d,
                                                       bias=False, dtype=dtype))
 
+    def _stack(self, nbr_block: torch.Tensor, cens, sx: torch.Tensor
+               ) -> torch.Tensor:
+        """The growth layer stack on one block of slots or edges: layer i
+        sums its center projection, its slice of the gathered neighbor
+        projections, its sxyz projection and those of the earlier layers'
+        relu outputs."""
+        hiddens = []
+        for i in range(len(self.dims)):
+            acc = cens[i] + nbr_block[..., self.offs[i]:self.offs[i + 1]] \
+                + getattr(self, f"fc_{i}_sxyz")(sx)
+            for j, h in enumerate(hiddens):
+                acc = acc + getattr(self, f"fc_{i}_h{j}")(h)
+            if i == self.n_hidden:
+                return acc
+            hiddens.append(torch.relu(acc))
+
     def forward(self, sxyz: Optional[torch.Tensor], feats: torch.Tensor,
-                nbr, xyz: Optional[torch.Tensor] = None,
+                nbr, edges=None, edge_band: Optional[Tuple[float, float]]
+                = None, edge_rescale: float = 1.0,
+                xyz: Optional[torch.Tensor] = None,
                 inv_rescale: float = 1.0) -> torch.Tensor:
         """sxyz [N, K, 3] (already divided by the stage rescale), feats
         [N, F], nbr a WindowedNeighborhood or Neighborhood -> [N, Dout].
         With ``xyz`` [N, 3] float32 the layer forms sxyz itself (the xyz
-        fold) and ``sxyz`` is ignored."""
-        fc = lambda name: getattr(self, name)  # noqa: E731
-        nbr_proj = torch.cat([fc(f"fc_{i}_nbr")(feats)
-                              for i in range(len(self.dims))], dim=-1)
+        fold) and ``sxyz`` is ignored.
+
+        ``edges``, an ``EdgeOverflow`` shared by the level's bands (JAX
+        ``models/fast_conv.py:122-142``): its rows within ``edge_band`` =
+        (min_radius, max_radius) run the same stack, on the neighbor
+        projection's row ``nbr``, the center projection's row ``center``
+        and ``edges.sxyz / edge_rescale``, and join the max.  Both row
+        reads are indexing, whose backward is PyTorch's sort-based
+        accumulation (deterministic on the card)."""
+        nd = len(self.dims)
+        nbr_proj = torch.cat([getattr(self, f"fc_{i}_nbr")(feats)
+                              for i in range(nd)], dim=-1)
+        cens = [getattr(self, f"fc_{i}_cen")(feats) for i in range(nd)]
         if xyz is not None:
             sd, cdt = nbr_proj.shape[-1], nbr_proj.dtype
             hi, mid = split_xyz(xyz, cdt)
@@ -73,16 +101,12 @@ class PointNetConvFast(nn.Module):
             sxyz = ((xyz_j - xyz[:, None, :]) * inv_rescale).to(cdt).detach()
         else:
             nbr_all = nb.gather_neighbors(nbr_proj, nbr)      # [N, K, ΣD]
-        hiddens = []
-        out = None
-        for i in range(len(self.dims)):
-            acc = fc(f"fc_{i}_cen")(feats)[:, None, :] \
-                + nbr_all[..., self.offs[i]:self.offs[i + 1]] \
-                + fc(f"fc_{i}_sxyz")(sxyz)
-            for j, h in enumerate(hiddens):
-                acc = acc + fc(f"fc_{i}_h{j}")(h)
-            if i < self.n_hidden:
-                hiddens.append(torch.relu(acc))
-            else:
-                out = acc
-        return nb.masked_max(out, nbr)
+        out = self._stack(nbr_all, [c[:, None, :] for c in cens], sxyz)
+        e_out = None
+        if edges is not None:
+            e_cen = torch.cat(cens, dim=-1)[edges.center.long()]
+            e_cen = [e_cen[:, self.offs[i]:self.offs[i + 1]]
+                     for i in range(nd)]
+            e_sx = (edges.sxyz / edge_rescale).to(sxyz.dtype)
+            e_out = self._stack(nbr_proj[edges.nbr.long()], e_cen, e_sx)
+        return nb.masked_max(out, nbr, edges, edge_band, e_out)

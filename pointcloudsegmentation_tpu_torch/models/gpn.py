@@ -74,12 +74,12 @@ class GPNStage(nn.Module):
         super().__init__()
         self.spec = spec
         g = spec.gxyz_dim
-        self.xyz_gc = GPNConv(0, m, g, mode="xyz")
+        self.xyz_gc = GPNConv(0, m, g, mode="xyz", no_sum=True)
         self.xyz_fc = Dense(m * g, g, dtype=dtype)
         w = g + in_dim
         for i, (gd, fd) in enumerate(zip(spec.gc_dims, spec.fc_dims)):
             self.add_module(f"gc_{i}", GPNConv(w, m, gd, mode="feats",
-                                               shared_lw=True))
+                                               no_sum=True, shared_lw=True))
             self.add_module(f"fc_{i}", Dense(m * gd + w, fd, dtype=dtype))
             w += fd
         self.lf_width = w

@@ -8,8 +8,9 @@ are float32; ``dtype`` is the compute dtype (None = float32)."""
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -139,20 +140,36 @@ class PointNetConv(nn.Module):
             w = w + d if concat_growth else d
         self.fc_out = Dense(w, out_dim, dtype=dtype)
 
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_hidden):
+            c = torch.relu(getattr(self, f"fc_{i}")(x))
+            x = torch.cat([c, x], dim=-1) if self.concat_growth else c
+        return self.fc_out(x)
+
     def forward(self, sxyz: torch.Tensor, feats: Optional[torch.Tensor],
-                nbr) -> torch.Tensor:
+                nbr, edges=None, edge_band=None,
+                edge_rescale: float = 1.0) -> torch.Tensor:
         """sxyz [N, K, 3] (already rescaled), feats [N, F] (None for the
         xyz-only conv), nbr a Neighborhood or WindowedNeighborhood ->
-        [N, out]."""
+        [N, out].  With an ``EdgeOverflow`` (``edges``), its rows within
+        ``edge_band`` = (min_radius, max_radius) run the same MLP on
+        ``[feats[center] ‖ feats[nbr] ‖ edges.sxyz / edge_rescale]`` (the
+        sxyz alone for the xyz-only conv) and join the max (JAX
+        ``models/layers.py:140-160``)."""
         x = sxyz
         if self.use_feats:
             feats = feats.to(self.dtype or feats.dtype)
             x = torch.cat([nb.neighbor_concat(feats, nbr),
                            sxyz.to(feats.dtype)], dim=-1)
-        for i in range(self.n_hidden):
-            c = torch.relu(getattr(self, f"fc_{i}")(x))
-            x = torch.cat([c, x], dim=-1) if self.concat_growth else c
-        return nb.masked_max(self.fc_out(x), nbr)
+        e_out = None
+        if edges is not None:
+            xe = (edges.sxyz / edge_rescale).to(sxyz.dtype)
+            if self.use_feats:
+                xe = torch.cat([feats[edges.center.long()],
+                                feats[edges.nbr.long()],
+                                xe.to(feats.dtype)], dim=-1)
+            e_out = self._mlp(xe)
+        return nb.masked_max(self._mlp(x), nbr, edges, edge_band, e_out)
 
 
 class ECDConv(nn.Module):
@@ -229,6 +246,55 @@ class PointNetPoolMLP(nn.Module):
         return self.mlp(torch.cat([dxyz, feats], dim=-1))
 
 
+def anchor_param(module: nn.Module, name: str, init: np.ndarray,
+                 trainable: bool) -> None:
+    """Register anchor directions ``init`` under ``name``: a Parameter
+    (a flax leaf of that name, mapped by ``convert.py``; no Glorot draw
+    touches it) when ``trainable``, else a buffer left out of the
+    ``state_dict`` (a constant the flax tree has no leaf for)."""
+    t = torch.from_numpy(np.array(init, np.float32))
+    if trainable:
+        module.register_parameter(name, nn.Parameter(t))
+    else:
+        module.register_buffer(name, t, persistent=False)
+
+
+class AnchorConv(nn.Module):
+    """Explicit-anchor Gaussian conv (``anchor_conv_v2``; JAX
+    ``models/layers.py:225-260``): the features embedded to [an·ed]
+    (``fc_embed``) and gathered per slot, weighted per anchor by
+    ``exp(-rescale_ratio · |sxyz - anchor|²)`` over the valid slots,
+    summed over the slots, then ReLU ``fc_out``.  ``anchor`` [an, 3]
+    starts at ``sphere_kmeans_anchors(an).T`` (rows, unlike ``pmiu``'s
+    columns), trainable unless ``trainable_anchor=False``."""
+
+    def __init__(self, in_dim: int, out_dim: int, anchor_num: int,
+                 embed_dim: int, rescale_ratio: float = 4.0,
+                 trainable_anchor: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.an, self.ed = anchor_num, embed_dim
+        self.rescale_ratio = rescale_ratio
+        self.fc_embed = Dense(in_dim, anchor_num * embed_dim, dtype=dtype)
+        anchor_param(self, "anchor",
+                     anchor_gen.cached_sphere_anchors(anchor_num).T,
+                     trainable_anchor)
+        self.fc_out = Dense(anchor_num * embed_dim, out_dim, dtype=dtype)
+
+    def forward(self, sxyz: torch.Tensor, feats: torch.Tensor,
+                nbr) -> torch.Tensor:
+        """sxyz [N, K, 3], feats [N, F] -> [N, out]."""
+        n, k = sxyz.shape[:2]
+        edge = nb.gather_neighbors(self.fc_embed(feats), nbr)
+        edge = edge.reshape(n, k, self.an, self.ed)
+        d2 = ((sxyz[:, :, None, :] - self.anchor) ** 2).sum(dim=-1)
+        w = torch.exp(-d2 * self.rescale_ratio)                 # [N, K, an]
+        w = w * nbr.mask[..., None].to(w.dtype)
+        dt = torch.promote_types(w.dtype, edge.dtype)
+        agg = torch.einsum("nka,nkae->nae", w.to(dt), edge.to(dt))
+        return torch.relu(self.fc_out(agg.reshape(n, -1)))
+
+
 def anchored_sum(lw: torch.Tensor, edge: torch.Tensor) -> torch.Tensor:
     """``einsum("nkm,nkf->nmf")`` in the dtype jnp promotes the two to
     (float32 for float32 weights), as the JAX layers compute it."""
@@ -236,64 +302,97 @@ def anchored_sum(lw: torch.Tensor, edge: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nkm,nkf->nmf", lw.to(dt), edge.to(dt))
 
 
+def location_weights(sxyz: torch.Tensor, pmiu: torch.Tensor, nbr,
+                     scale_val: float = 1.0):
+    """The GPN convs' location weights: ``lw = exp((sxyz·scale) @ pmiu)``
+    [N, K, m] over the valid slots and their sum over the slots [N, m]
+    (JAX ``models/layers.py:310-318``, ``models/variants.py:60-68``)."""
+    if scale_val != 1.0:
+        sxyz = sxyz * scale_val
+    lw = torch.exp(sxyz @ pmiu)
+    lw = lw * nbr.mask[..., None].to(lw.dtype)
+    return lw, lw.sum(dim=1)
+
+
 class GPNConv(nn.Module):
     """Gaussian-anchored location-weighted conv (the "GPN" conv; JAX
-    ``models/layers.py:263-332``, as ``GPNStage`` builds it: ``no_sum``):
-    location weights ``lw = exp(sxyz · pmiu)`` [N, K, m] over valid slots,
-    and per anchor ``Σ_k lw · (cfeats @ pw) / (Σ_k lw + 1e-6)``, factored
-    as ``agg = einsum("nkm,nkf->nmf", lw, cfeats)`` then
-    ``einsum("nmf,fmo->nmo", agg, pw)``, so no [N, K, m, out] tensor
-    exists; flattened to [N, m·out], plus ``bias``, then ReLU.
+    ``models/layers.py:263-332``): location weights ``lw = exp(sxyz ·
+    pmiu)`` [N, K, m] over valid slots, and per anchor ``Σ_k lw ·
+    (cfeats @ pw) / (Σ_k lw + 1e-6)``, factored as ``agg =
+    einsum("nkm,nkf->nmf", lw, cfeats)`` then ``einsum("nmf,fmo->nmo",
+    agg, pw)``, so no [N, K, m, out] tensor exists; summed over the
+    anchors to [N, out], or with ``no_sum`` (as ``GPNStage`` builds it)
+    flattened to [N, m·out]; plus ``bias`` of that width
+    (``use_bias``), then ``activation`` (ReLU; None for none).
 
     ``mode`` picks cfeats: ``xyz`` the slot offsets sxyz [N, K, 3],
-    ``feats`` the gathered neighbor features.  The weights, the
-    aggregation and the output are float32 whatever the gathered
-    features' dtype (a float32 ``pw`` promotes them, as in JAX).  ``pw``
-    [ifn, m·out] is the raw flax parameter.  ``pmiu`` [3, m], the anchor
-    directions, is a constant computed once at construction (a buffer
-    left out of the ``state_dict``: the flax tree has no leaf for it).  A
-    conv built with ``shared_lw`` has none and takes the ``lw``/``lw_sum``
-    another conv of its stage returned (the flax module creates no
-    ``pmiu`` when it is given them).  Returns (out, lw, lw_sum)."""
+    ``feats`` the gathered neighbor features, ``xyz_feats`` both, sxyz
+    first.  The weights, the aggregation and the output are float32
+    whatever the gathered features' dtype (a float32 ``pw`` promotes
+    them, as in JAX).  ``pw`` [ifn, m·out] is the raw flax parameter.
+    ``pmiu`` [3, m], the anchor directions, starts at the sphere k-means:
+    a constant (``anchor_param``) or, with ``pmiu_trainable``, the flax
+    ``pmiu`` leaf.  A conv built with ``shared_lw`` has none and takes the
+    ``lw``/``lw_sum`` another conv of its stage returned (the flax module
+    creates no ``pmiu`` when it is given them).  Returns (out, lw,
+    lw_sum)."""
 
-    def __init__(self, in_dim: int, m: int, out_dim: int, mode: str,
+    MODES = ("xyz", "feats", "xyz_feats")
+
+    def __init__(self, in_dim: int, m: int, out_dim: int,
+                 mode: str = "xyz_feats", use_bias: bool = True,
+                 activation: Optional[Callable] = torch.relu,
+                 pmiu_trainable: bool = False, no_sum: bool = False,
                  shared_lw: bool = False):
         super().__init__()
-        if mode not in ("xyz", "feats"):
-            raise ValueError(f"mode must be xyz or feats: {mode}")
+        if mode not in self.MODES:
+            raise ValueError(f"mode must be one of {self.MODES}: {mode}")
         self.mode, self.m, self.out_dim = mode, m, out_dim
-        self.ifn = 3 if mode == "xyz" else in_dim
+        self.no_sum, self.activation = no_sum, activation
+        self.ifn = {"xyz": 3, "feats": in_dim, "xyz_feats": 3 + in_dim}[mode]
         self.pw = nn.Parameter(torch.zeros(self.ifn, m * out_dim))
-        self.bias = nn.Parameter(torch.zeros(m * out_dim))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(m * out_dim if no_sum
+                                                 else out_dim))
+        else:
+            self.bias = None
         self.shared_lw = shared_lw
         if not shared_lw:
-            self.register_buffer("pmiu", torch.from_numpy(
-                anchor_gen.cached_sphere_anchors(m)), persistent=False)
+            anchor_param(self, "pmiu", anchor_gen.cached_sphere_anchors(m),
+                         pmiu_trainable)
 
     @torch.no_grad()
     def init_glorot_(self, generator: torch.Generator) -> None:
         glorot_(self.pw, self.ifn, self.m * self.out_dim, generator)
-        self.bias.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, sxyz: torch.Tensor, feats: Optional[torch.Tensor],
                 nbr, lw: Optional[torch.Tensor] = None,
                 lw_sum: Optional[torch.Tensor] = None):
         """sxyz [N, K, 3] float32 (raw offsets), feats [N, F] or None ->
-        (out [N, m·out], lw [N, K, m], lw_sum [N, m])."""
-        cfeats = sxyz if self.mode == "xyz" else \
-            nb.gather_neighbors(feats, nbr)
+        (out [N, out] or [N, m·out], lw [N, K, m], lw_sum [N, m])."""
+        if self.mode == "xyz":
+            cfeats = sxyz
+        else:
+            cfeats = nb.gather_neighbors(feats, nbr)
+            if self.mode == "xyz_feats":
+                dt = torch.promote_types(sxyz.dtype, cfeats.dtype)
+                cfeats = torch.cat([sxyz.to(dt), cfeats.to(dt)], dim=-1)
         if lw is None:
             if self.shared_lw:
                 raise ValueError("a shared_lw GPNConv needs lw and lw_sum")
-            lw = torch.exp(sxyz @ self.pmiu)
-            lw = lw * nbr.mask[..., None].to(lw.dtype)
-            lw_sum = lw.sum(dim=1)
+            lw, lw_sum = location_weights(sxyz, self.pmiu, nbr)
         agg = anchored_sum(lw, cfeats)
         pw3 = self.pw.view(self.ifn, self.m, self.out_dim)
         num = torch.einsum("nmf,fmo->nmo", agg, pw3.to(agg.dtype))
         out = num / (lw_sum[..., None] + 1e-6)
-        return torch.relu(out.reshape(out.shape[0], -1) + self.bias), lw, \
-            lw_sum
+        out = out.reshape(out.shape[0], -1) if self.no_sum else out.sum(1)
+        if self.bias is not None:
+            out = out + self.bias
+        if self.activation is not None:
+            out = self.activation(out)
+        return out, lw, lw_sum
 
 
 class ProbsDiffusion(nn.Module):
@@ -318,31 +417,39 @@ class ProbsDiffusion(nn.Module):
 
 
 class SegClassifier(nn.Module):
-    """Segmentation head (``classifier_v3``): Dense(512) -> relu ->
-    concat(local) -> dropout -> Dense(256) -> relu -> concat -> dropout ->
-    logits.  With ``premixed`` (the JAX ``SegClassifier(premixed=True)``)
-    the input already is the first Dense's pre-activation (the encoder's
-    factored head, 512 wide), so there is no ``class_mlp1``; without it
-    ``class_mlp1`` maps the encoder's wide decoder output (``in_dim``) to
-    512.  Dropout (rate 0.3) runs only with ``train=True`` and draws from
-    the given generator."""
-
-    DIMS = (512, 256)   # the widths of class_mlp1 and class_mlp2
+    """The reference's segmentation-head family (JAX
+    ``models/layers.py:335-397``); by default ``classifier_v3``:
+    Dense(512) -> relu -> concat(local) -> dropout -> Dense(256) -> relu
+    -> concat -> dropout -> logits (``class_mlp1..3``).  ``dims`` sets the
+    hidden widths and ``use_pfeats=False`` drops the local-feature concats
+    (``pfeat_dim`` is then unused).
+    With ``premixed`` (the JAX ``SegClassifier(premixed=True)``) the input
+    already is the first Dense's pre-activation (the encoder's factored
+    head, ``dims[0]`` wide), so there is no ``class_mlp1``; without it
+    ``class_mlp1`` maps ``in_dim`` columns to ``dims[0]``.  Dropout (rate
+    0.3) runs only with ``train=True`` and draws from the given
+    generator."""
 
     def __init__(self, num_classes: int, in_dim: int, pfeat_dim: int,
                  premixed: bool = True, dropout_rate: float = 0.3,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 dims: Tuple[int, ...] = (512, 256), use_pfeats: bool = True):
         super().__init__()
-        d1, d2 = self.DIMS
-        if premixed and in_dim != d1:
-            raise ValueError(f"a premixed head takes {d1} columns, got "
+        if premixed and in_dim != dims[0]:
+            raise ValueError(f"a premixed head takes {dims[0]} columns, got "
                              f"{in_dim}")
         self.premixed = premixed
         self.dropout_rate = dropout_rate
-        if not premixed:
-            self.class_mlp1 = Dense(in_dim, d1, dtype=dtype)
-        self.class_mlp2 = Dense(d1 + pfeat_dim, d2, dtype=dtype)
-        self.class_mlp3 = Dense(d2 + pfeat_dim, num_classes, dtype=dtype)
+        self.dims = tuple(dims)
+        self.use_pfeats = use_pfeats
+        extra = pfeat_dim if use_pfeats else 0
+        w = in_dim
+        for i, d in enumerate(self.dims):
+            if i or not premixed:
+                self.add_module(f"class_mlp{i + 1}", Dense(w, d, dtype=dtype))
+            w = d + extra
+        self.add_module(f"class_mlp{len(self.dims) + 1}",
+                        Dense(w, num_classes, dtype=dtype))
 
     def _dropout(self, x: torch.Tensor,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -352,15 +459,44 @@ class SegClassifier(nn.Module):
         u = torch.rand(x.shape, generator=generator, device=x.device)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
-    def forward(self, feats: torch.Tensor, pfeats: torch.Tensor,
-                train: bool = False,
+    def forward(self, feats: torch.Tensor,
+                pfeats: Optional[torch.Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if not self.premixed:
-            feats = self.class_mlp1(feats)
-        x = torch.cat([torch.relu(feats), pfeats], dim=-1)
-        if train:
-            x = self._dropout(x, generator)
-        x = torch.cat([torch.relu(self.class_mlp2(x)), pfeats], dim=-1)
-        if train:
-            x = self._dropout(x, generator)
-        return self.class_mlp3(x)
+        x = feats
+        for i in range(len(self.dims)):
+            if i or not self.premixed:
+                x = getattr(self, f"class_mlp{i + 1}")(x)
+            x = torch.relu(x)
+            if self.use_pfeats:
+                x = torch.cat([x, pfeats], dim=-1)
+            if train:
+                x = self._dropout(x, generator)
+        return getattr(self, f"class_mlp{len(self.dims) + 1}")(x)
+
+
+def classifier_v2(num_classes: int, in_dim: int, **kw) -> SegClassifier:
+    """``classifier_v2`` (JAX ``models/layers.py:382-385``): 256/128, no
+    local-feature concat, so no ``pfeat_dim``.  Unfactored (``class_mlp1``
+    on ``in_dim`` columns) unless ``premixed=True`` is passed, as the JAX
+    constructors default."""
+    kw.setdefault("premixed", False)
+    return SegClassifier(num_classes, in_dim, 0, dims=(256, 128),
+                         use_pfeats=False, **kw)
+
+
+def classifier_v4(num_classes: int, in_dim: int, pfeat_dim: int,
+                  **kw) -> SegClassifier:
+    """``classifier_v4`` (JAX ``:388-390``): 256/128 with the local-feature
+    concats; unfactored unless ``premixed=True``."""
+    kw.setdefault("premixed", False)
+    return SegClassifier(num_classes, in_dim, pfeat_dim, dims=(256, 128),
+                         **kw)
+
+
+def classifier_v5(num_classes: int, in_dim: int, pfeat_dim: int,
+                  **kw) -> SegClassifier:
+    """``classifier_v5`` (JAX ``:393-397``): the same structure as v3, the
+    named constructor of the refine cascade's heads; unfactored unless
+    ``premixed=True``."""
+    kw.setdefault("premixed", False)
+    return SegClassifier(num_classes, in_dim, pfeat_dim, **kw)

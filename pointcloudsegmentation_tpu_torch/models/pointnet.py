@@ -310,17 +310,28 @@ class PointNetSegEncoder(nn.Module):
     the global search.  The windowed search's overflow slots read through
     a tile-shared pool of ``ov_pool_size`` rows (the JAX build's 256), or
     with 0 hold per-point global indices (the flax default, which the JAX
-    ``dense_semantic3d`` build keeps)."""
+    ``dense_semantic3d`` build keeps).
+
+    ``ov_mode="edges"`` (JAX ``models/pointnet.py:388-392``) replaces the
+    overflow slots by one shared ``EdgeOverflow`` per windowed level, of
+    ``edge_ratio`` x N rows (3 at stage 0, 5 deeper: deeper levels have
+    more out-of-slab neighbors); every conv of the level, the pre-stage
+    included, takes its band's rows of it.  ``ov_pool_size`` then plays
+    no part."""
 
     def __init__(self, feat_dim: int, arch: Arch = S3DIS_ARCH,
                  head_dim: Optional[int] = HEAD_DIM,
                  search_chunk: int = 1024, win_tile: int = 256,
                  win_window: int = 256, ov_pool_size: int = OV_POOL_SIZE,
-                 dtype: Optional[torch.dtype] = None, windowed: bool = True):
+                 dtype: Optional[torch.dtype] = None, windowed: bool = True,
+                 ov_mode: str = "slots"):
         super().__init__()
         if head_dim is not None and arch.decoder == "deconv":
             raise ValueError("the factored head needs the linear concat "
                              "decoder: use head_dim=None with deconv")
+        if ov_mode not in ("slots", "edges"):
+            raise ValueError(f"ov_mode must be slots or edges: {ov_mode}")
+        self.ov_mode = ov_mode
         self.feat_dim = feat_dim
         self.arch = arch
         self.head_dim = head_dim
@@ -399,9 +410,12 @@ class PointNetSegEncoder(nn.Module):
         self.out_width = lw
 
     def _stage_neighborhoods(self, xyz: torch.Tensor, mask: torch.Tensor,
-                             specs, is_sorted: bool) -> Dict:
+                             specs, is_sorted: bool,
+                             edge_ratio: int = 3) -> Dict:
         """All of a stage's (radius, min_radius, k) searches in one pass;
-        returns spec -> (neighborhood, sxyz)."""
+        returns spec -> (neighborhood, sxyz, edges): the level's shared
+        ``EdgeOverflow`` where ``ov_mode="edges"`` and the level is
+        windowed, else None."""
         uniq = list(dict.fromkeys(specs))
         bands = tuple((mn, mx, k) for (mx, mn, k) in uniq)
         n = xyz.shape[0]
@@ -413,12 +427,15 @@ class PointNetSegEncoder(nn.Module):
                 cand_k=search.effective_win_cand_k(WIN_CAND_K, CAND_K,
                                                    bands, n),
                 ov_slots=OV_SLOTS, chunk=chunk,
-                ov_pool_size=self.ov_pool_size, return_sxyz=True)
+                ov_pool_size=self.ov_pool_size, return_sxyz=True,
+                ov_mode=self.ov_mode, edge_ratio=edge_ratio)
+            if self.ov_mode == "edges":
+                return dict(zip(uniq, res))
         else:
             res = search.multi_band_neighbors(
                 xyz, mask, bands, cand_k=min(CAND_K, n), chunk=chunk,
                 return_sxyz=True)
-        return dict(zip(uniq, res))
+        return {spec: (nbr, sx, None) for spec, (nbr, sx) in zip(uniq, res)}
 
     def stage_specs(self, s: int):
         """The (radius, min_radius, k) of every search at stage ``s``: its
@@ -441,22 +458,26 @@ class PointNetSegEncoder(nn.Module):
             for lvl in range(n_stages - 1):
                 avg_feats.append(hier.pool_avg(avg_feats[-1], pyramid, lvl))
 
-        caches = []
+        caches, edge_caches = [], []
         for s in range(n_stages):
             nbrs = self._stage_neighborhoods(
                 pyramid.levels[s].xyz, pyramid.levels[s].mask,
-                self.stage_specs(s), pyramid.level_sorted(s))
-            if self.dtype is not None:
-                nbrs = {sp: (nb, sx.to(self.dtype))
-                        for sp, (nb, sx) in nbrs.items()}
-            caches.append(nbrs)
+                self.stage_specs(s), pyramid.level_sorted(s),
+                edge_ratio=3 if s == 0 else 5)
+            caches.append({sp: (nb, sx if self.dtype is None
+                                else sx.to(self.dtype))
+                           for sp, (nb, sx, _) in nbrs.items()})
+            edge_caches.append(next(iter(nbrs.values()))[2])
 
         # Semantic3D's pre-stage: a conv on level 1's avg-pooled raw
         # features, unpooled and prepended to level 0's (JAX :542-553)
         ps = arch.pre_stage
         if ps is not None:
             nbr, sxyz = caches[1][(ps.radius, 0.0, ps.k)]
-            pre = self.feats_pre(sxyz / ps.rescale, avg_feats[1], nbr)
+            pre = self.feats_pre(sxyz / ps.rescale, avg_feats[1], nbr,
+                                 edges=edge_caches[1],
+                                 edge_band=(0.0, ps.radius),
+                                 edge_rescale=ps.rescale)
             feats = torch.cat([hier.unpool(pre, pyramid, 0), feats], dim=-1)
 
         stage_feats = []
@@ -472,14 +493,18 @@ class PointNetSegEncoder(nn.Module):
                 sxyz = sxyz_raw / rescale
                 conv = getattr(self, f"feats{conv_idx}")
                 conv_idx += 1
+                ekw = dict(edges=edge_caches[s],
+                           edge_band=(c.min_radius, c.radius),
+                           edge_rescale=rescale)
                 if c.nofeats:
-                    feats = conv(sxyz, None, nbr)
+                    feats = conv(sxyz, None, nbr, **ekw)
                     continue
                 fin = feats
                 if c.embed is not None:
                     fin = getattr(self, f"embed{embed_idx}")(feats)
                     embed_idx += 1
-                feats = torch.cat([feats, conv(sxyz, fin, nbr)], dim=-1)
+                feats = torch.cat([feats, conv(sxyz, fin, nbr, **ekw)],
+                                  dim=-1)
             stage_feats.append(feats)
             if s < n_stages - 1:
                 parts = [avg_feats[s + 1]] if arch.use_avg_feats else []

@@ -1,7 +1,9 @@
 """The conv variants of the reference zoo (mirror of
-``pointcloudsegmentation_tpu.models.variants``): ``ECDFeatsV4`` (pgnet_v7's
-conv), ``MaskedBatchNorm``, ``ECDXyzV2`` and ``ECDFeatsV2`` (pgnet_v6's),
-and ``DiffusionAnchorConv`` v1-v3 (v2 runs in ``template_diffusion_anchor``).
+``pointcloudsegmentation_tpu.models.variants``): the anchored ablation convs
+``GPNConvV2``, ``compute_wlw``, ``DiffFeatsWLW`` and ``WLWConv``;
+``ECDFeatsV4`` (pgnet_v7's conv), ``MaskedBatchNorm``, ``ECDXyzV2`` and
+``ECDFeatsV2`` (pgnet_v6's), and ``DiffusionAnchorConv`` v1-v3 (v2 runs in
+``template_diffusion_anchor``).
 
 Submodule and parameter names are the flax ones, so ``convert.py`` maps
 the trees one to one; the non-Dense leaves (``edge_weights_trans``, the
@@ -12,13 +14,148 @@ gathers one tensor twice (``neighbor_diff`` and ``gather_neighbors``), it
 is gathered once here and the center subtracted."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
 
+from ..ops import anchors as anchor_gen
 from ..ops import neighbors as nb
-from .layers import Dense, add_growth, anchored_sum, growth
+from .layers import (Dense, add_growth, anchor_param, anchored_sum, glorot_,
+                     growth, location_weights)
+
+
+class GPNConvV2(nn.Module):
+    """Weight-after-aggregate anchored conv (``graph_conv_{xyz,feats}_v2``;
+    JAX ``models/variants.py:22-79``): per anchor the location-weighted
+    mean of the slot features, ``Σ_k lw · sfeats / (Σ_k lw + 1e-6)`` with
+    ``lw = exp((sxyz · scale_val) @ pmiu)`` over valid slots, flattened to
+    [N, m·F], then ``@ pw`` [m·F, out] ``+ bias`` and ``activation``.
+    ``mode="xyz"`` takes sxyz as the slot features, ``"feats"`` the
+    gathered neighbor features.  ``pw`` and ``bias`` are the raw flax
+    parameters; ``pmiu`` as ``GPNConv``'s (``pmiu_trainable``).  Given
+    ``lw``/``lw_sum`` it uses them and creates no ``pmiu``, as the flax
+    module does not (``shared_lw``).  Returns (out, lw, lw_sum)."""
+
+    def __init__(self, in_dim: int, m: int, out_dim: int, mode: str = "xyz",
+                 scale_val: float = 1.0,
+                 activation: Optional[Callable] = torch.relu,
+                 pmiu_trainable: bool = False, shared_lw: bool = False):
+        super().__init__()
+        if mode not in ("xyz", "feats"):
+            raise ValueError(f"mode must be xyz or feats: {mode}")
+        self.mode, self.m, self.out_dim = mode, m, out_dim
+        self.scale_val, self.activation = scale_val, activation
+        self.ifn = 3 if mode == "xyz" else in_dim
+        self.pw = nn.Parameter(torch.zeros(m * self.ifn, out_dim))
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+        self.shared_lw = shared_lw
+        if not shared_lw:
+            anchor_param(self, "pmiu", anchor_gen.cached_sphere_anchors(m),
+                         pmiu_trainable)
+
+    @torch.no_grad()
+    def init_glorot_(self, generator: torch.Generator) -> None:
+        glorot_(self.pw, self.m * self.ifn, self.out_dim, generator)
+        self.bias.zero_()
+
+    def forward(self, sxyz: torch.Tensor, feats: Optional[torch.Tensor],
+                nbr, lw: Optional[torch.Tensor] = None,
+                lw_sum: Optional[torch.Tensor] = None):
+        """sxyz [N, K, 3] float32, feats [N, F] or None -> (out [N, out],
+        lw [N, K, m], lw_sum [N, m])."""
+        sfeats = sxyz if self.mode == "xyz" else \
+            nb.gather_neighbors(feats, nbr)
+        if lw is None:
+            if self.shared_lw:
+                raise ValueError("a shared_lw GPNConvV2 needs lw and lw_sum")
+            lw, lw_sum = location_weights(sxyz, self.pmiu, nbr,
+                                          self.scale_val)
+        wfeats = anchored_sum(lw, sfeats) / (lw_sum[..., None] + 1e-6)
+        wfeats = wfeats.reshape(wfeats.shape[0], -1)
+        out = wfeats @ self.pw.to(wfeats.dtype) + self.bias
+        if self.activation is not None:
+            out = self.activation(out)
+        return out, lw, lw_sum
+
+
+def compute_wlw(sxyz: torch.Tensor, nbr, pmiu: torch.Tensor,
+                scale_val: float = 1.0) -> torch.Tensor:
+    """Pre-normalised Gaussian edge weights (``compute_wlw``; JAX
+    ``models/variants.py:82-90``): the location weights over the valid
+    slots divided by their sum over the slots + 1e-6, [N, K, m]."""
+    lw, lw_sum = location_weights(sxyz, pmiu, nbr, scale_val)
+    return lw / (lw_sum[:, None, :] + 1e-6)
+
+
+def _normalise_slots(lw: torch.Tensor, nbr) -> torch.Tensor:
+    lw = lw * nbr.mask[..., None].to(lw.dtype)
+    return lw / (lw.sum(dim=1, keepdim=True) + 1e-6)
+
+
+class DiffFeatsWLW(nn.Module):
+    """MLP-predicted pre-normalised anchor weights from feature
+    differences (``compute_diff_feats_wlw``; JAX ``models/variants.py:
+    93-110``): a plain ReLU MLP (``fc_{i}``) on ``f_j - f_i``, m logits
+    (``fc_weights``), clipped to ±10, exponentiated, normalised over the
+    valid slots -> [N, K, m]."""
+
+    def __init__(self, in_dim: int, m: int, fc_dims: Sequence[int],
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.n_fc = len(fc_dims)
+        w = in_dim
+        for i, d in enumerate(fc_dims):
+            self.add_module(f"fc_{i}", Dense(w, d, dtype=dtype))
+            w = d
+        self.fc_weights = Dense(w, m, dtype=dtype)
+
+    def forward(self, feats: torch.Tensor, nbr) -> torch.Tensor:
+        x = nb.neighbor_diff(feats, nbr)
+        for i in range(self.n_fc):
+            x = torch.relu(getattr(self, f"fc_{i}")(x))
+        lw = torch.exp(self.fc_weights(x).clamp(-10.0, 10.0))
+        return _normalise_slots(lw, nbr)
+
+
+class WLWConv(nn.Module):
+    """Convs over pre-normalised edge weights ``wlw`` [N, K, m]
+    (``graph_conv_{xyz,feats}_{sum,concat}``; JAX ``models/variants.py:
+    113-144``).  ``sum``: each slot embedded to [m, out] (``embed``; on
+    sxyz, or with ``use_xyz=False`` on the point features BEFORE the
+    gather: the projection commutes with it), then ``Σ_m Σ_k wlw ·
+    edge`` -> ``activation``.  ``concat``: per anchor ``Σ_k wlw`` times
+    the raw slot features (sxyz, or the gathered features) -> [N, m·F] ->
+    ``embed`` -> ``activation``."""
+
+    def __init__(self, in_dim: int, m: int, out_dim: int, mode: str = "sum",
+                 use_xyz: bool = True,
+                 activation: Optional[Callable] = torch.relu,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if mode not in ("sum", "concat"):
+            raise ValueError(f"mode must be sum or concat: {mode}")
+        self.mode, self.use_xyz, self.m = mode, use_xyz, m
+        self.out_dim, self.activation = out_dim, activation
+        f = 3 if use_xyz else in_dim
+        self.embed = Dense(f, m * out_dim, dtype=dtype) if mode == "sum" \
+            else Dense(m * f, out_dim, dtype=dtype)
+
+    def forward(self, sxyz: torch.Tensor, feats: Optional[torch.Tensor],
+                nbr, wlw: torch.Tensor) -> torch.Tensor:
+        """sxyz [N, K, 3], feats [N, F] or None, wlw [N, K, m] ->
+        [N, out]."""
+        if self.mode == "sum":
+            edge = self.embed(sxyz) if self.use_xyz else \
+                nb.gather_neighbors(self.embed(feats), nbr)
+            edge = edge.reshape(edge.shape[:2] + (self.m, self.out_dim))
+            dt = torch.promote_types(wlw.dtype, edge.dtype)
+            out = torch.einsum("nkm,nkmo->no", wlw.to(dt), edge.to(dt))
+        else:
+            edge = sxyz if self.use_xyz else nb.gather_neighbors(feats, nbr)
+            agg = anchored_sum(wlw, edge)
+            out = self.embed(agg.reshape(agg.shape[0], -1))
+        return self.activation(out) if self.activation is not None else out
 
 
 def l2_normalise(ew: torch.Tensor) -> torch.Tensor:

@@ -68,3 +68,17 @@ def pool_avg(feats: torch.Tensor, pyramid: Pyramid,
 def unpool(feats: torch.Tensor, pyramid: Pyramid, level: int) -> torch.Tensor:
     """Broadcast level+1 voxel features to level points."""
     return seg_ops.segment_unpool(feats, pyramid.seg[level])
+
+
+def average_downsample(xyz: torch.Tensor, feats: torch.Tensor,
+                       mask: torch.Tensor, ds_size: float,
+                       block_size: float, v_max: int):
+    """Voxel-mean downsample of coordinates and features
+    (``average_downsample``; JAX ``ops/hierarchy.py:106-121``): voxels of
+    ``ds_size``, at most ``v_max``.  Returns (center_xyz [v_max, 3],
+    center_feats [v_max, F], the mean of the valid member points' features
+    and 0 for an empty voxel, vmask [v_max])."""
+    info = vox.voxelize(xyz, mask, ds_size, block_size, v_max)
+    mf = mask[:, None].to(feats.dtype)
+    cf = seg_ops.segment_mean(feats * mf, info.seg, v_max)
+    return info.centers, cf, info.mask

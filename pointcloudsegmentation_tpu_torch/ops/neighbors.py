@@ -81,14 +81,38 @@ def neighbor_concat(feats: torch.Tensor, nbr) -> torch.Tensor:
     return torch.cat([feats[:, None, :].expand_as(neigh), neigh], dim=-1)
 
 
-def masked_max(edge_feats: torch.Tensor, nbr) -> torch.Tensor:
+def masked_max(edge_feats: torch.Tensor, nbr, edges=None,
+               edge_band=None, edge_vals=None) -> torch.Tensor:
     """Max over valid slots, 0 for a point without one (JAX
-    ``ops/neighbors.py:249-262``): [N, K, F] -> [N, F]."""
+    ``ops/neighbors.py:249-262``): [N, K, F] -> [N, F].
+
+    With an ``EdgeOverflow`` (``edges``), the per-edge values
+    ``edge_vals`` [E, F] of its rows within ``edge_band`` = (min_radius,
+    max_radius) join the max (JAX ``models/fast_conv.py:129-142``):
+    masked rows carry -1e30, the max per center (a segment max whose
+    gradient splits evenly among ties, as JAX's) is clamped to -1e30 in
+    the edges' dtype and cast to the slots', and a center with a valid
+    row counts as having a neighbor."""
     mask = nbr.mask
     best = torch.where(mask[..., None], edge_feats,
                        torch.full_like(edge_feats, -1e30)).amax(dim=1)
-    return torch.where(mask.any(dim=1)[:, None], best,
-                       torch.zeros_like(best))
+    any_valid = mask.any(dim=1)
+    if edges is not None:
+        n, f = best.shape
+        emask = edges.band_mask(*edge_band)
+        center = edges.center.long()
+        neg = torch.where(emask[:, None], edge_vals,
+                          torch.full_like(edge_vals, -1e30))
+        seg = neg.new_full((n, f), float("-inf")).scatter_reduce(
+            0, center[:, None].expand(-1, f), neg, "amax",
+            include_self=False)
+        seg = torch.maximum(seg, torch.full_like(seg, -1e30))
+        best = torch.maximum(best, seg.to(best.dtype))
+        any_valid = any_valid | (torch.zeros(
+            n, dtype=torch.float32, device=best.device).scatter_reduce(
+            0, center, emask.to(torch.float32), "amax",
+            include_self=False) > 0.5)
+    return torch.where(any_valid[:, None], best, torch.zeros_like(best))
 
 
 def masked_sum(edge_feats: torch.Tensor, nbr) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Fixed-K multi-band neighbor search (mirror of
 ``pointcloudsegmentation_tpu.ops.search`` in its production configurations:
-windowed slab selection with a tile-shared overflow pool or with per-point
-overflow slots, the global search for levels too small to window, and the
-dispatch between them, ``band_neighbors_auto``), the radius search, and
-the k nearest support points of another cloud, ``knn_in_support``.
+windowed slab selection with a tile-shared overflow pool, with per-point
+overflow slots or with a shared overflow edge list; the global search for
+levels too small to window, and the dispatch between them,
+``band_neighbors_auto``), the radius and annulus searches, and the k
+nearest support points of another cloud, ``knn_in_support``.
 
 Selection reproduces the JAX CPU result slot for slot:
 
@@ -24,7 +25,7 @@ import torch
 
 from ..kernels.window_gather import gather_fwd
 from .neighbors import pool_take
-from .types import Neighborhood, WindowedNeighborhood
+from .types import EdgeOverflow, Neighborhood, WindowedNeighborhood
 
 _INF = 1e30
 
@@ -255,9 +256,12 @@ def windowed_multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
                                   cand_k: int = 64, ov_slots: int = 8,
                                   chunk: int = 2048,
                                   ov_pool_size: int = 256,
-                                  return_sxyz: bool = False):
+                                  return_sxyz: bool = False,
+                                  ov_mode: str = "slots",
+                                  edge_ratio: int = 2):
     """Multi-band search for MORTON-SORTED points, split into windowed slots
-    and overflow slots (``sel_mode="slab"``, ``ov_mode="slots"``).
+    and an overflow tier (``sel_mode="slab"``): per-point overflow slots
+    (``ov_mode="slots"``) or one shared edge list (``ov_mode="edges"``).
 
     Each tile of ``tile`` points selects its ``cand_k`` nearest candidates
     from its slab ``[t*tile - window, t*tile + tile + window)``; a global
@@ -268,13 +272,25 @@ def windowed_multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
     their geometry read by plain row indexing (JAX ``ops/search.py:684-686,
     745-752``).  Every band then compacts both tiers.  Returns a tuple of
     WindowedNeighborhood per band, or of (WindowedNeighborhood, sxyz
-    [N, K+Ko, 3]) pairs."""
+    [N, K+Ko, 3]) pairs.
+
+    ``ov_mode="edges"`` (JAX ``:695-737``) takes ``min(16, cand_k)``
+    out-of-slab candidates per point, reads their rows directly (no pool,
+    whatever ``ov_pool_size``), and keeps those within the level's loosest
+    band limits in one ``EdgeOverflow`` of ``edge_ratio * N`` rows
+    (``_edge_list``).  Each band's WindowedNeighborhood then has no
+    overflow slots (Ko = 0), and every band returns the same edge list:
+    (WindowedNeighborhood, edges), or (WindowedNeighborhood, sxyz
+    [N, K, 3], edges) with ``return_sxyz``."""
     n = xyz.shape[0]
     if n % tile or window % tile:
         raise ValueError(f"need N % tile == 0 and window % tile == 0 "
                          f"(N={n}, tile={tile}, window={window})")
     if ov_pool_size < 0:
         raise ValueError(f"ov_pool_size must be >= 0, got {ov_pool_size}")
+    if ov_mode not in ("slots", "edges"):
+        raise ValueError(f"ov_mode must be slots or edges: {ov_mode}")
+    edges_mode = ov_mode == "edges"
     dev = xyz.device
     chunk = min(chunk, n)
     sq = sqnorm3(xyz)
@@ -315,7 +331,7 @@ def windowed_multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
     is_self_win = lci == self_local[:, None]
 
     # out-of-slab selection: the ov_pool nearest columns outside the slab
-    ov_pool = min(2 * ov_slots, cand_k)
+    ov_pool = min(16, cand_k) if edges_mode else min(2 * ov_slots, cand_k)
     lo = (row // tile) * tile - window
     col = torch.arange(n, device=dev)[None, :]
     oci = torch.empty((n, ov_pool), dtype=torch.long, device=dev)
@@ -327,7 +343,7 @@ def windowed_multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
         ovv[rows], oci[rows] = _topk_smallest(d2g, ov_pool)
     opool_mask = ovv < _INF * 0.5
 
-    if ov_pool_size > 0:
+    if ov_pool_size > 0 and not edges_mode:
         pool_gidx, ppos = _tile_shared_pool(oci, opool_mask, tile,
                                             ov_pool_size)
         pg = xyzm[pool_gidx.reshape(-1).long()].reshape(nt, ov_pool_size, 4)
@@ -346,6 +362,16 @@ def windowed_multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
     wcomp = _compact_bands(ed2_win, valid_win, is_self_win, lci,
                            sxyz_win if return_sxyz else None, mask,
                            self_local, bands, ks)
+    if edges_mode:
+        edges = _edge_list(valid_ov, ed2_ov, sxyz_ov, oci, bands,
+                           edge_ratio * n)
+        out = []
+        for widx, wm, wsx in wcomp:
+            wn = WindowedNeighborhood(
+                lidx=widx, wmask=wm, ov_idx=widx.new_zeros((n, 0)),
+                ov_mask=wm.new_zeros((n, 0)), window=window, tile=tile)
+            out.append((wn, wsx, edges) if return_sxyz else (wn, edges))
+        return tuple(out)
     ocomp = _compact_bands(ed2_ov, valid_ov, torch.zeros_like(valid_ov),
                            ov_src, sxyz_ov if return_sxyz else None, mask,
                            ov_pad, bands, [min(ov_slots, k) for k in ks])
@@ -357,6 +383,57 @@ def windowed_multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
         out.append((wn, torch.cat([wsx, osx], dim=1)) if return_sxyz
                    else wn)
     return tuple(out)
+
+
+def _edge_list(valid_ov: torch.Tensor, ed2_ov: torch.Tensor,
+               sxyz_ov: torch.Tensor, oci: torch.Tensor, bands,
+               e_cap: int) -> EdgeOverflow:
+    """The level's shared edge list from the [N, op] out-of-slab
+    candidates (nearest first): those within the loosest band limits,
+    filled RANK-MAJOR (every point's rank-0 candidate before any rank-1
+    one), so that past ``e_cap`` rows the farthest ranks drop across the
+    whole level; then stably sorted by center, unfilled rows (center N)
+    last, and masked rows given center N - 1 (JAX ``ops/search.py:
+    695-737``, which carries the indices as float32 columns of one
+    payload: exact below 2^24 rows)."""
+    n, op = valid_ov.shape
+    dev = valid_ov.device
+    max_mx = max(mx for (_, mx, _) in bands)
+    min_mn = min(mn for (mn, _, _) in bands)
+    keep = valid_ov & (ed2_ov <= max_mx * max_mx) \
+        & (ed2_ov >= min_mn * min_mn)
+    kf = keep.t().reshape(-1)                                # rank-major
+    pos = torch.cumsum(kf.to(torch.int64), 0) - 1
+    # rows past the cap go to a pad row at e_cap, sliced off below
+    slot = torch.where(kf & (pos < e_cap), pos, torch.full_like(pos, e_cap))
+    row = torch.arange(n, device=dev)
+    center = torch.full((e_cap + 1,), n, dtype=torch.int64, device=dev)
+    nbr = torch.zeros((e_cap + 1,), dtype=torch.int64, device=dev)
+    geo = torch.zeros((e_cap + 1, 4), dtype=ed2_ov.dtype, device=dev)
+    center[slot] = row[None, :].expand(op, n).reshape(-1)
+    nbr[slot] = oci.t().reshape(-1).long()
+    geo[slot] = torch.cat([ed2_ov[..., None], sxyz_ov], dim=-1) \
+        .transpose(0, 1).reshape(-1, 4)
+    # a pad-row write may land last or not; it is dropped either way
+    center, nbr, geo = center[:e_cap], nbr[:e_cap], geo[:e_cap]
+    order = torch.sort(center, stable=True).indices
+    count = kf.sum().clamp(max=e_cap)
+    e_mask = torch.arange(e_cap, device=dev) < count
+    center = torch.where(e_mask, center[order], torch.full_like(center,
+                                                                n - 1))
+    geo = geo[order]
+    return EdgeOverflow(center=center.to(torch.int32),
+                        nbr=nbr[order].to(torch.int32), sxyz=geo[:, 1:],
+                        d2=geo[:, 0], mask=e_mask)
+
+
+def annulus_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
+                      min_radius: float, max_radius: float, k: int,
+                      chunk: int = 1024) -> Neighborhood:
+    """The dilated (annulus) search, ``search_neighborhood_range`` (JAX
+    ``ops/search.py:272-277``): ``radius_neighbors`` with ``min_radius``."""
+    return radius_neighbors(xyz, mask, max_radius, k, min_radius=min_radius,
+                            chunk=chunk)
 
 
 def band_neighbors_auto(xyz: torch.Tensor, mask: torch.Tensor, bands,

@@ -1,5 +1,5 @@
 """Static-shape neighborhood and pyramid containers (mirror of
-``pointcloudsegmentation_tpu.ops.types``; ``EdgeOverflow`` is not ported)."""
+``pointcloudsegmentation_tpu.ops.types``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -37,7 +37,9 @@ class WindowedNeighborhood:
               they are positions into the tile-shared pool (invalid slots
               hold P, the null position); with ``pool_idx`` None they are
               per-point global point indices (invalid slots hold the
-              point's own index).
+              point's own index).  The edge-list search
+              (``ov_mode="edges"``) gives Ko = 0: its out-of-slab
+              neighbors travel in an ``EdgeOverflow``.
     ov_mask:  [N, Ko] bool
     pool_idx: optional [nt, P] int32 — global point indices of each tile's
               pool (invalid entries hold 0 and are never referenced).
@@ -84,6 +86,32 @@ class WindowedNeighborhood:
     def to_neighborhood(self) -> Neighborhood:
         """Plain global-index view (for oracle tests)."""
         return Neighborhood(idx=self.global_idx, mask=self.mask)
+
+
+class EdgeOverflow(NamedTuple):
+    """One level's out-of-slab neighbors as a shared edge list (JAX
+    ``ops/types.py:124-161``): E = edge_ratio * N rows serve every band of
+    the level, in place of per-point overflow slots.
+
+    center: [E] int32 — center point index, ascending (masked rows hold
+            N - 1, so the whole column stays sorted).
+    nbr:    [E] int32 — neighbor point index.
+    sxyz:   [E, 3] float32 — xyz[nbr] - xyz[center].
+    d2:     [E] float32 — squared edge length.
+    mask:   [E] bool — valid rows, a contiguous prefix.
+    """
+
+    center: torch.Tensor
+    nbr: torch.Tensor
+    sxyz: torch.Tensor
+    d2: torch.Tensor
+    mask: torch.Tensor
+
+    def band_mask(self, min_radius: float,
+                  max_radius: float) -> torch.Tensor:
+        """The valid rows with min_radius <= length <= max_radius."""
+        return self.mask & (self.d2 >= min_radius * min_radius) \
+            & (self.d2 <= max_radius * max_radius)
 
 
 class Level(NamedTuple):

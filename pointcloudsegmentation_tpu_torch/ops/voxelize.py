@@ -99,3 +99,17 @@ def diff_to_center(xyz: torch.Tensor, centers: torch.Tensor,
                    seg: torch.Tensor) -> torch.Tensor:
     """Per-point offset from its voxel center (overflow points: xyz - 0)."""
     return xyz - seg_ops.segment_unpool(centers, seg)
+
+
+def voxel_majority_label(labels: torch.Tensor, mask: torch.Tensor,
+                         seg: torch.Tensor, v_max: int,
+                         num_classes: int) -> torch.Tensor:
+    """Per-voxel majority-vote label (``ComputeVoxelLabel``; JAX
+    ``ops/voxelize.py:167-181``): the valid points' one-hot labels summed
+    per segment (the overflow segment ``v_max`` dropped), argmax with ties
+    to the lowest class; an empty voxel gets 0.  labels [N] int ->
+    [v_max] int32."""
+    onehot = (labels.long()[:, None] == torch.arange(
+        num_classes, device=labels.device)[None, :]) & mask[:, None]
+    votes = seg_ops.segment_sum(onehot.to(torch.float32), seg, v_max)
+    return torch.argmax(votes, dim=-1).to(torch.int32)

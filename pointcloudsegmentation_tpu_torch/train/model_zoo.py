@@ -321,9 +321,10 @@ def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
     sphere k-means and ``ProbsDiffusion``'s ``alpha`` at 0 either way.
     The model lives on ``device``: the card unless the caller asks for the
     CPU.  ``encoder_kw`` override PointNetSegEncoder settings (win_tile,
-    win_window, search_chunk), also for ``dense_semantic3d``; the other
-    encoders take ``search_chunk`` only, the one setting the JAX build
-    passes them.  A ``_PIPELINES`` key gives its model
+    win_window, search_chunk, and ``ov_mode="edges"``: the shared
+    overflow edge list in place of the overflow slots, the JAX encoder's
+    ``ov_mode``), also for ``dense_semantic3d``; the other encoders take
+    ``search_chunk`` only, the one setting the JAX build passes them.  A ``_PIPELINES`` key gives its model
     (``dense_semantic3d`` a ``DenseSegModel`` over the unfactored
     ``SEMANTIC3D_DILATE_ARCH`` encoder with per-point overflow slots,
     ``context_semantic3d`` a ``ContextFusionModel`` with the config's

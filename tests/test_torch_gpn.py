@@ -203,7 +203,7 @@ def _args(nbrs, kind, feats=True):
 def test_gpn_conv(nbrs, kind, mode):
     a, ta = _args(nbrs, kind, mode != "xyz")
     jmod = jlayers.GPNConv(M, 6, mode=mode, no_sum=True)
-    tmod = tlayers.GPNConv(12, M, 6, mode=mode)
+    tmod = tlayers.GPNConv(12, M, 6, mode=mode, no_sum=True)
     assert "pmiu" not in tmod.state_dict()
     np.testing.assert_array_equal(tmod.pmiu.numpy(),
                                   janchors.sphere_kmeans_anchors(M))
@@ -219,11 +219,12 @@ def test_gpn_conv_shared_lw(nbrs, kind):
     ``GPNStage`` chains them."""
     a, ta = _args(nbrs, kind)
     jfirst = jlayers.GPNConv(M, 4, mode="xyz", no_sum=True)
-    tfirst = tlayers.GPNConv(0, M, 4, mode="xyz")
+    tfirst = tlayers.GPNConv(0, M, 4, mode="xyz", no_sum=True)
     params, (_, lw, lw_sum) = _compare(jfirst, tfirst, a, ta, seed=2)
     _, jlw, jlw_sum = jfirst.apply(params, *a)
     jshared = jlayers.GPNConv(M, 5, mode="feats", no_sum=True)
-    tshared = tlayers.GPNConv(12, M, 5, mode="feats", shared_lw=True)
+    tshared = tlayers.GPNConv(12, M, 5, mode="feats", no_sum=True,
+                              shared_lw=True)
     assert not hasattr(tshared, "pmiu")
     kw = dict(lw=jlw, lw_sum=jlw_sum)
     _compare(jshared, tshared, a, ta, seed=3, kwargs=kw,
@@ -247,7 +248,7 @@ def test_gpn_conv_gradient(nbrs, kind):
         return jnp.sum(jmod.apply(p, sxyz, f, jn)[0] * w)
 
     gp, gf = jax.grad(loss, argnums=(0, 1))(params, feats)
-    tmod = tlayers.GPNConv(12, M, 6, mode="feats")
+    tmod = tlayers.GPNConv(12, M, 6, mode="feats", no_sum=True)
     tmod.load_state_dict(flax_to_state_dict(params), strict=True)
     tf = _t(feats).requires_grad_(True)
     (tmod(ta[0], tf, ta[2])[0] * _t(w)).sum().backward()

@@ -156,7 +156,10 @@ def test_flagship_convert_round_trip(flagship):
     with pytest.raises(RuntimeError):
         tmodel.load_state_dict(bad, strict=True)
     with pytest.raises(KeyError):
-        flax_to_state_dict({"x": {"pmiu": np.ones(3, np.float32)}})
+        flax_to_state_dict({"x": {"moving_mean": np.ones(3, np.float32)}})
+    # a trainable GPN conv's pmiu keeps its name (GPNConv(pmiu_trainable))
+    assert set(flax_to_state_dict({"x": {"pmiu": np.ones(3, np.float32)}})
+               ) == {"x.pmiu"}
 
 
 def test_tiny_s3dis_bf16_end_to_end(monkeypatch):

@@ -67,7 +67,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "parallel.scene_shard", "dryrun", "halo_study",
                  "utils.viz", "utils.profiling", "eval.analysis",
                  "analysis_compare", "verify_search_recall", "profile_step",
-                 "trace_step", "conv_compare", "eval_parity"):
+                 "trace_step", "conv_compare", "eval_parity",
+                 "ops.geometry"):
         assert f"'pointcloudsegmentation_tpu_torch.{name}'" in walked, name
 
 
