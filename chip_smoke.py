@@ -266,6 +266,23 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    smallest eigenvalue is isolated.  (c) ``voxel_majority_label`` and
    ``average_downsample`` at the s3dis voxel sizes and caps: integers
    equal, floats within 1e-6.
+19. the exact-search training arm and the windowed-vs-exact A/B.  (a) The
+   flagship built with the exact global search at every level
+   (``Trainer(windowed=False)``, full width and depth, bf16 compute,
+   seeded weights) trains on phase 7's batches: one counted step of 4 x
+   8192 points and 3 timed ones, none of which launches K2 or K3 (the
+   exact arm gathers by plain indexing; a launch would mean the windowed
+   path leaked in), beside phase 7's windowed step (step s, train
+   points/s, peak memory); one step twice from one state bitwise equal;
+   on one float32 block, card vs CPU, every level's exact search slot for
+   slot (at least 0.999 of the valid slots equal), logits argmax on at
+   least 0.999 of the valid points and the flat gradient's cosine at
+   least 0.999.  (b) ``parity_ab.main`` cut to ``--arms windowed exact
+   --hard``, 2 train rooms, 1 test room and 1 epoch of the flagship at
+   8192 points: both arms' keys and the deltas (each the difference of
+   the arms' values), every last train loss finite, the card in the
+   JSON; the windowed arm's launches as its trained and tested blocks
+   count them, the exact arm's none.
 
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
@@ -353,6 +370,9 @@ P18_TOP = 8                 # ... kernels listed by device time
 P18_ANCHORS = 8             # anchors of the tail's anchored convs
 P18_TAIL_TOL = 1e-4         # tail outputs, of max(1, the largest |value|)
 P18_HELPER_TOL = 1e-6       # average_downsample's centers and features
+# phase 19: the exact-search training arm and the parity A/B
+P19_TIMED_STEPS = 3         # exact-arm train steps timed after the first
+P19_AB_TRAIN_ROOMS, P19_AB_TEST_ROOMS, P19_AB_EPOCHS = 2, 1, 1  # parity_ab
 ECD_TIMED_STEPS = 3         # training steps timed after the counted first
 DSLAB_F32_RTOL = 1e-6       # slab-gradient kernel vs plain, float32
 GRAD_COSINE_MIN = 0.999     # flat gradient, float32 card vs CPU
@@ -938,8 +958,8 @@ def make_train_batches(device):
     from pointcloudsegmentation_tpu_torch.data.provider import to_device
 
     return [to_device(b, device) for b in toy.toy_batches(
-        2, batch_size=TRAIN_BLOCKS, num_points=N_POINTS, num_classes=13,
-        feat_dim=12)]
+        2, batch_size=TRAIN_BLOCKS, num_points=N_POINTS, kind="room",
+        num_classes=13, feat_dim=12)]
 
 
 def phase_train(cfg, card):
@@ -1479,8 +1499,8 @@ def phase_family(card):
     blocks = semantic3d_blocks(0, CLI_STEPS * TRAIN_BLOCKS)
     s3d_batch = block_batch(blocks[:TRAIN_BLOCKS], SEM3D_POINTS, 0)
     s3dis_batch = next(toy.toy_batches(1, batch_size=TRAIN_BLOCKS,
-                                       num_points=N_POINTS, num_classes=13,
-                                       feat_dim=12))
+                                       num_points=N_POINTS, kind="room",
+                                       num_classes=13, feat_dim=12))
     cfgs = [semantic3d_config(model=k) for k in SEM3D_KEYS] \
         + [s3dis_config(model=k) for k in S3DIS_KEYS]
     widest = None
@@ -1785,7 +1805,7 @@ def phase_ecd(card):
         d = cfg.data
         # ScanNet's labels run 0..20 with 0 ignored
         batch = next(toy.toy_batches(
-            1, batch_size=TRAIN_BLOCKS, num_points=N_POINTS,
+            1, batch_size=TRAIN_BLOCKS, num_points=N_POINTS, kind="room",
             num_classes=d.num_classes + (1 if scannet else 0),
             feat_dim=d.feat_dim))
         fwd, step = ecd_per_block(cfg)
@@ -1930,8 +1950,8 @@ def phase_gpn(card):
     # (a) gpn_seg trains
     cfg = s3dis_config(model="gpn_seg")
     batch = next(toy.toy_batches(1, batch_size=TRAIN_BLOCKS,
-                                 num_points=N_POINTS, num_classes=13,
-                                 feat_dim=12))
+                                 num_points=N_POINTS, kind="room",
+                                 num_classes=13, feat_dim=12))
     gathers = gpn_gathers(build_model(cfg, None, "cpu"), cfg)
     fwd, step = gpn_per_block(cfg)
     for what, lvl, k, f, dtype, _ in gathers:
@@ -2206,8 +2226,8 @@ def phase_composite(card):
     total = {"window_gather": 0, "window_dslab": 0, "window_dslab_map": 0}
     records, widths = [], {}
     batch = next(toy.toy_batches(1, batch_size=TRAIN_BLOCKS,
-                                 num_points=N_POINTS, num_classes=13,
-                                 feat_dim=12))
+                                 num_points=N_POINTS, kind="room",
+                                 num_classes=13, feat_dim=12))
     block0 = {k: batch[k][0] for k in ("xyz", "feats", "mask")}
     for key in COMPOSITE_KEYS:
         cfg = s3dis_config(model=key)
@@ -2898,8 +2918,8 @@ def p16_batch():
     from pointcloudsegmentation_tpu_torch.data import toy
 
     return next(toy.toy_batches(1, batch_size=TRAIN_BLOCKS,
-                                num_points=N_POINTS, num_classes=13,
-                                feat_dim=12))
+                                num_points=N_POINTS, kind="room",
+                                num_classes=13, feat_dim=12))
 
 
 def p16_group(store, n, rank, backend):
@@ -3684,6 +3704,71 @@ def phase_tools(model, cfg, card):
     return total
 
 
+def timed_steps(trainer, state, batches, n, expect, what):
+    """``n`` train steps from ``state`` over ``batches`` in turn, one host
+    read at the end, counted by ``run_path``.  Returns (state, metrics,
+    counts, seconds)."""
+    import math
+
+    def steps():
+        st = state
+        for i in range(n):
+            st, mm = trainer.train_step(st, batches[i % len(batches)])
+        float(mm["loss"])
+        return st, mm
+
+    (state, m), counts, secs = run_path(f"{what} {n} timed train steps",
+                                        steps, expect)
+    check(math.isfinite(float(m["loss"])), f"{what} timed step loss")
+    return state, m, counts, secs
+
+
+def step_twice(trainer, state, batch, expect, what):
+    """One train step twice from one state, counted: params, mu, nu and
+    count bitwise equal.  Returns the counts."""
+    import torch
+
+    (a, b), counts, _ = run_path(
+        f"{what} step twice from one state",
+        lambda: (trainer.train_step(state, batch)[0],
+                 trainer.train_step(state, batch)[0]), expect)
+    for f in ("params", "mu", "nu", "count"):
+        check(torch.equal(getattr(a, f), getattr(b, f)),
+              f"two runs of one {what} step differ in {f}")
+    log(f"[{what}] one step twice from one state: params, mu, nu and count "
+        "bitwise equal")
+    return counts
+
+
+def f32_grad_cosine(f32, block, expect, what, card, **trainer_kw):
+    """The float32 ``train=False`` loss and flat gradient of one block on
+    the card (counted) and on the CPU, weights from torch.Generator seed
+    0: the cosine must reach GRAD_COSINE_MIN.  Returns the counts."""
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(f32, device=dev, **trainer_kw)
+        st = tr.init_state(torch.Generator().manual_seed(0))
+        if dev == "cuda":
+            (lo, g), counts, _ = run_path(
+                f"{what} float32 loss and grad, one block",
+                lambda: tr.loss_and_grad(st, block, train=False), expect)
+        else:
+            lo, g = tr.loss_and_grad(st, block, train=False)
+        grads[dev] = (float(lo), g.double().cpu())
+        del tr, st
+    gc, gh = grads["cuda"][1], grads["cpu"][1]
+    cos = float(gc @ gh / (gc.norm() * gh.norm()))
+    log(f"[{what}] float32 flat gradient card vs CPU: cosine {cos:.6f} "
+        f"(need >= {GRAD_COSINE_MIN}), loss {grads['cuda'][0]:.6f} vs "
+        f"{grads['cpu'][0]:.6f} [{card}]")
+    check(cos >= GRAD_COSINE_MIN, f"{what} gradient cosine {cos}")
+    return counts
+
+
 # -- phase 18: the overflow edge list, the conv tail and the helpers --------
 
 def p18_move(obj, device):
@@ -3839,18 +3924,10 @@ def p18_flagship(cfg, card, slots):
     check(math.isfinite(loss) and int(m["skipped"]) == 0,
           f"edges train step loss {loss}")
 
-    def timed():
-        st = state
-        for i in range(EDGE_TIMED_STEPS):
-            st, mm = trainer.train_step(st, batches[i % 2])
-        float(mm["loss"])
-        return st, mm
-
-    (state, m), counts, secs = run_path(
-        f"edges {EDGE_TIMED_STEPS} timed train steps", timed,
-        times(step, TRAIN_BLOCKS * EDGE_TIMED_STEPS))
+    state, m, counts, secs = timed_steps(
+        trainer, state, batches, EDGE_TIMED_STEPS,
+        times(step, TRAIN_BLOCKS * EDGE_TIMED_STEPS), "edges")
     total = plus(total, counts)
-    check(math.isfinite(float(m["loss"])), "edges timed step loss")
     valid = int(batches[0]["mask"].sum())
     step_s, pps = secs / EDGE_TIMED_STEPS, valid * EDGE_TIMED_STEPS / secs
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3888,20 +3965,9 @@ def p18_flagship(cfg, card, slots):
     for key, n, ms, share in s["kernels"][:P18_TOP]:
         log(f"    {n:7.1f} {ms:8.3f} {share:6.3f}  {key[:100]}")
 
-    def twice():
-        a, _ = trainer.train_step(state, batches[0])
-        b, _ = trainer.train_step(state, batches[0])
-        return a, b
-
-    (a, b), counts, _ = run_path("edges step twice from one state", twice,
-                                 times(step, 2 * TRAIN_BLOCKS))
-    total = plus(total, counts)
-    for f in ("params", "mu", "nu", "count"):
-        check(torch.equal(getattr(a, f), getattr(b, f)),
-              f"two runs of one edges step differ in {f}")
-    log("[edges] one step twice from one state: params, mu, nu and count "
-        "bitwise equal")
-    del trainer, state, m, a, b
+    total = plus(total, step_twice(trainer, state, batches[0],
+                                   times(step, 2 * TRAIN_BLOCKS), "edges"))
+    del trainer, state, m
     torch.cuda.empty_cache()
 
     # float32, one block, card vs CPU
@@ -3931,25 +3997,8 @@ def p18_flagship(cfg, card, slots):
     check(bool(torch.isfinite(got).all()), "edges float32 logits")
     check(agree >= EDGE_ROW_MIN, f"edges argmax agreement {agree}")
     del host_model, card_model
-    grads = {}
-    for dev in ("cuda", "cpu"):
-        tr = Trainer(f32, device=dev, ov_mode="edges")
-        st = tr.init_state(torch.Generator().manual_seed(0))
-        if dev == "cuda":
-            (lo, g), counts, _ = run_path(
-                "edges float32 loss and grad, one block",
-                lambda: tr.loss_and_grad(st, one, train=False), step)
-            total = plus(total, counts)
-        else:
-            lo, g = tr.loss_and_grad(st, one, train=False)
-        grads[dev] = (float(lo), g.double().cpu())
-        del tr, st
-    gc, gh = grads["cuda"][1], grads["cpu"][1]
-    cos = float(gc @ gh / (gc.norm() * gh.norm()))
-    log(f"[edges] float32 flat gradient card vs CPU: cosine {cos:.6f} (need "
-        f">= {GRAD_COSINE_MIN}), loss {grads['cuda'][0]:.6f} vs "
-        f"{grads['cpu'][0]:.6f} [{card}]")
-    check(cos >= GRAD_COSINE_MIN, f"edges gradient cosine {cos}")
+    total = plus(total, f32_grad_cosine(f32, one, step, "edges", card,
+                                        ov_mode="edges"))
     return total, block
 
 
@@ -4203,6 +4252,215 @@ def phase_edges(card, slots):
     return total
 
 
+# -- phase 19: the exact-search training arm and the parity A/B --------------
+
+def p19_exact_step(cfg, card, slots):
+    """19 (a): the flagship trained with the exact global search
+    (``Trainer(windowed=False)``, full width and depth, bf16 compute,
+    seeded weights) on phase 7's batches: a counted step and
+    P19_TIMED_STEPS timed ones with no K2 or K3 launch, beside phase 7's
+    windowed step; one step twice from one state bitwise equal; on one
+    float32 block, card vs CPU: every level's exact search slot for slot,
+    logits argmax and the flat gradient's cosine."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    total = dict(ZERO_COUNTS)
+    batches = make_train_batches("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, device="cuda", windowed=False)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    log(f"[exact] pointnet_s3dis windowed=False {cfg.compute_dtype}: "
+        f"{trainer.num_params} params")
+    (state, m), counts, first = run_path(
+        f"exact train step ({TRAIN_BLOCKS} x {N_POINTS} points)",
+        lambda: trainer.train_step(state, batches[0]), P17_EXACT_ARM)
+    total = plus(total, counts)
+    loss = float(m["loss"])
+    check(math.isfinite(loss) and int(m["skipped"]) == 0,
+          f"exact train step loss {loss}")
+
+    state, m, counts, secs = timed_steps(trainer, state, batches,
+                                         P19_TIMED_STEPS, P17_EXACT_ARM,
+                                         "exact")
+    total = plus(total, counts)
+    valid = int(batches[0]["mask"].sum())
+    step_s, pps = secs / P19_TIMED_STEPS, valid * P19_TIMED_STEPS / secs
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    slots_pps, slots_peak = slots
+    log(f"[exact] first step loss {loss:.5f} in {first:.2f} s (set-up "
+        f"included); {step_s:.4f} s a step, {pps:.1f} train points/s, peak "
+        f"{peak:.3f} GiB; phase 7's windowed step {valid / slots_pps:.4f} "
+        f"s, {slots_pps:.1f} train points/s, peak {slots_peak:.3f} GiB "
+        f"[{card}]")
+
+    total = plus(total, step_twice(trainer, state, batches[0],
+                                   P17_EXACT_ARM, "exact"))
+    del trainer, state, m
+    torch.cuda.empty_cache()
+
+    # float32, one block, card vs CPU
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    one = {k: v[:1].cpu() for k, v in batches[0].items()}
+    args = [one[k][0] for k in ("xyz", "feats", "mask")]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(f32, torch.Generator().manual_seed(0), dev,
+                            windowed=False).eval()
+
+        def forward():
+            with torch.inference_mode():
+                x, f, mk = (t.to(dev) for t in args)
+                nbrs = [(f"L{s} {spec}", nb.idx.cpu(), nb.mask.cpu())
+                        for s, spec, nb in path_neighborhoods(
+                            model, cfg, x, mk)]
+                return model(x, f, mk).cpu(), nbrs
+
+        if dev == "cuda":
+            out[dev], counts, _ = run_path(
+                "exact float32 search and forward, one block", forward,
+                P17_EXACT_ARM)
+            total = plus(total, counts)
+        else:
+            out[dev] = forward()
+        del model
+    slots_total = slots_bad = 0
+    for (name, gi, gm), (_, ci, cm) in zip(out["cuda"][1], out["cpu"][1]):
+        valid = gm | cm
+        bad = int((valid & ((gm != cm) | (gi != ci))).sum())
+        slots_total += int(valid.sum())
+        slots_bad += bad
+        log(f"[exact] search {name}: {bad} of {int(valid.sum())} valid "
+            "slots differ")
+    share = 1.0 - slots_bad / max(slots_total, 1)
+    log(f"[exact] exact search card vs CPU: {share:.6f} of "
+        f"{slots_total} valid slots equal (need >= {PARITY_NBR_MIN}) "
+        f"[{card}]")
+    check(share >= PARITY_NBR_MIN, f"exact search slot parity {share}")
+    gl, cl = out["cuda"][0], out["cpu"][0]
+    ok = args[2]
+    agree = float((gl.argmax(1) == cl.argmax(1))[ok].double().mean())
+    log(f"[exact] float32 logits card vs CPU: argmax agreement {agree:.6f} "
+        f"over {int(ok.sum())} valid points (need >= {ECD_ARGMAX_MIN}), "
+        f"max |d| {(gl - cl).abs().max():.3e} [{card}]")
+    check(bool(torch.isfinite(gl).all()), "exact float32 logits")
+    check(agree >= ECD_ARGMAX_MIN, f"exact argmax agreement {agree}")
+    return plus(total, f32_grad_cosine(f32, one, P17_EXACT_ARM, "exact",
+                                       card, windowed=False))
+
+
+def p19_parity_ab(card):
+    """19 (b): ``parity_ab.main`` at a cut depth (``--arms windowed exact
+    --hard``, 2 train rooms, 1 test room, 1 epoch, the flagship at 8192
+    points): both arms' keys, the deltas the differences of the arms'
+    values, every last train loss finite, the card in the JSON; the
+    windowed arm's K2/K3 launches as its steps and test blocks count them,
+    the exact arm's none."""
+    import math
+    import tempfile
+
+    from pointcloudsegmentation_tpu_torch import parity_ab
+    from pointcloudsegmentation_tpu_torch.config import s3dis_config
+
+    fwd, step = per_block(s3dis_config(data_num_points=N_POINTS))
+    blocks = {"train": 0, "eval": 0}
+    arms = {}
+    real_arm, real_trainer = parity_ab.run_arm, parity_ab.Trainer
+
+    class CountedTrainer(real_trainer):
+        def train_step(self, state, batch):
+            blocks["train"] += batch["xyz"].shape[0]
+            return super().train_step(state, batch)
+
+        def eval_step(self, state, batch):
+            blocks["eval"] += batch["xyz"].shape[0]
+            return super().eval_step(state, batch)
+
+    def counted_arm(arm, *a):
+        before, seen = read_counts(), dict(blocks)
+        res = real_arm(arm, *a)
+        after = read_counts()
+        arms[arm] = ({k: after[k] - before[k] for k in after},
+                     {k: blocks[k] - seen[k] for k in blocks})
+        return res
+
+    parity_ab.run_arm, parity_ab.Trainer = counted_arm, CountedTrainer
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "parity_ab_torch.json")
+            reset_counts()
+            t0 = time.perf_counter()
+            res = parity_ab.main([
+                "--arms", "windowed", "exact", "--hard", "--train-rooms",
+                str(P19_AB_TRAIN_ROOMS), "--test-rooms",
+                str(P19_AB_TEST_ROOMS), "--epochs", str(P19_AB_EPOCHS),
+                "--num-points", str(N_POINTS), "--out", out, "--device",
+                "cuda"])
+            counts = read_counts()
+            secs = time.perf_counter() - t0
+            with open(out) as f:
+                saved = json.load(f)
+    finally:
+        parity_ab.run_arm, parity_ab.Trainer = real_arm, real_trainer
+    (wcounts, wblocks), (ecounts, eblocks) = arms["windowed"], arms["exact"]
+    want = plus(times(step, wblocks["train"]), times(fwd, wblocks["eval"]))
+    log(f"[parity_ab] --hard, {P19_AB_TRAIN_ROOMS} train rooms "
+        f"({res['blocks'][0]} blocks), {P19_AB_TEST_ROOMS} test room "
+        f"({res['blocks'][1]} blocks), {P19_AB_EPOCHS} epoch: {secs:.2f} s; "
+        f"windowed arm {wcounts} over {wblocks['train']} trained and "
+        f"{wblocks['eval']} tested blocks (expected {want}), exact arm "
+        f"{ecounts} over {eblocks} (expected {P17_EXACT_ARM})")
+    check(wcounts == plus(want, ZERO_COUNTS),
+          f"windowed arm launches {wcounts}, expected {want}")
+    check(ecounts == plus(P17_EXACT_ARM, ZERO_COUNTS),
+          f"exact arm launches {ecounts}")
+    check(counts == plus(wcounts, ecounts),
+          f"parity_ab launches {counts} outside the arms")
+    check(saved == json.loads(json.dumps(res)), "the JSON is not the result")
+    check({"config", "blocks", "card", "windowed", "exact",
+           "delta_final_miou", "delta_best_miou"} <= set(saved),
+          f"parity_ab keys {sorted(saved)}")
+    w, e = saved["windowed"], saved["exact"]
+    for arm, r in (("windowed", w), ("exact", e)):
+        check({"curve", "final_miou", "best_miou"} <= set(r)
+              and len(r["curve"]) == P19_AB_EPOCHS
+              and all(math.isfinite(c["last_train_loss"])
+                      for c in r["curve"])
+              and 0 <= r["best_miou"] <= 1, f"{arm} arm {r}")
+        c = r["curve"][-1]
+        log(f"[parity_ab] {arm}: best mIoU {r['best_miou']:.4f}, final "
+            f"{r['final_miou']:.4f}, last train loss "
+            f"{c['last_train_loss']:.5f}, epoch {c['epoch_s']:.2f} s "
+            f"(train {c['train_s']:.2f} s) [{card}]")
+    check(saved["delta_final_miou"] == w["final_miou"] - e["final_miou"]
+          and saved["delta_best_miou"] == w["best_miou"] - e["best_miou"],
+          "the deltas are not the arms' differences")
+    log(f"[parity_ab] delta (windowed - exact): final "
+        f"{saved['delta_final_miou']:+.4f}, best "
+        f"{saved['delta_best_miou']:+.4f}; card {saved['card']}")
+    return counts
+
+
+def phase_exact(card, slots):
+    """19: the exact-search training arm and the windowed-vs-exact A/B on
+    the card (see the docstring).  ``slots`` is phase 7's (train points/s,
+    peak GiB)."""
+    from pointcloudsegmentation_tpu_torch.config import s3dis_config
+
+    t0 = time.perf_counter()
+    total = p19_exact_step(s3dis_config(), card, slots)
+    log(f"[exact] part exact step in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    total = plus(total, p19_parity_ab(card))
+    log(f"[parity_ab] part parity_ab in {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -4285,6 +4543,10 @@ def main() -> int:
     edge_launches = phase_edges(card, (train_pps, peak))
     log(f"[edges] phase 18 in {time.perf_counter() - t18:.1f} s")
     entry_launches = plus(entry_launches, edge_launches)
+    t19 = time.perf_counter()
+    exact_launches = phase_exact(card, (train_pps, peak))
+    log(f"[exact] phase 19 in {time.perf_counter() - t19:.1f} s")
+    entry_launches = plus(entry_launches, exact_launches)
 
     main_row = next(r for r in rows if r["name"].endswith("conv"))
     dmain, fmain = drows[0], frows[0]
@@ -4298,8 +4560,9 @@ def main() -> int:
         f"one training step's, the entry points', the PointNet family's, "
         f"the ECD family's, the GPN family's, the composite models', the "
         f"Semantic3D pipelines', the Semantic3D scan's, the parallel "
-        f"paths' (every rank's), the tools' and the edge list's and conv "
-        f"tail's, and the fused-conv bench's; "
+        f"paths' (every rank's), the tools', the edge list's and conv "
+        f"tail's and the windowed-vs-exact A/B's, and the fused-conv "
+        f"bench's; "
         f"eval "
         f"{pps:.1f} "
         f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "

@@ -2,7 +2,8 @@
 ``PointNetConvFast`` path, on one flagship conv at full width (the port's
 counterpart of ``scripts/bench_fused_conv.py``).
 
-    python -m pointcloudsegmentation_tpu_torch.bench_fused_conv --level 0|1
+    python -m pointcloudsegmentation_tpu_torch.bench_fused_conv --level 0|1 \
+        [--reps 16]
 
 Level 0: N=8192 points, F=64 input features, radius 0.15, K=32 slots,
 dims (8, 8, 16, 32); level 1: N=4096, F=128, radius 0.45, K=32, dims (16,
@@ -10,7 +11,8 @@ dims (8, 8, 16, 32); level 1: N=4096, F=128, radius 0.45, K=32, dims (16,
 weights drawn from ``torch.Generator`` seed 0.  The block is the port's
 synthetic S3DIS room (seed 0), Morton-sorted and searched with the JAX
 script's windowed settings.  Arms, each timed in milliseconds per call with
-CUDA events around 20 eager calls (host dispatch included):
+CUDA events around ``--reps`` eager calls (default 16; host dispatch
+included):
 
   unfused fwd      ``PointNetConvFast`` on the windowed neighborhood with
                    the search's sxyz (the production conv),
@@ -148,6 +150,8 @@ def time_arms(b: Bench, iters: int = 20) -> Dict[str, float]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--level", type=int, default=0, choices=sorted(LEVELS))
+    ap.add_argument("--reps", type=int, default=16,
+                    help="timed calls of each arm")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     b = setup(args.level, args.device)
@@ -157,7 +161,7 @@ def main(argv=None) -> int:
     if b.feats.is_cuda:
         from .utils.timing import card
         where = card()
-        for arm, ms in time_arms(b).items():
+        for arm, ms in time_arms(b, args.reps).items():
             print(f"{arm:16s} N={n} K={k} dims={dims}: {ms:.4f} ms [{where}]")
     err, scale = cross_check(b)
     print(f"fused vs unfused (windowed slots, bf16): max abs diff {err:.4f} "

@@ -51,7 +51,8 @@ def run_flavor(model: str, args, log, device="cuda"):
                        data_caps=(n // 2, n // 8),
                        optim_epoch_steps=args.steps)
     trainer = Trainer(cfg, device=device, search_chunk=min(1024, n))
-    batches = list(toy.toy_batches(args.steps, args.batch, num_points=n))
+    batches = list(toy.toy_batches(args.steps, args.batch, num_points=n,
+                                   kind="room"))
     state = trainer.init_state(torch.Generator().manual_seed(0))
     results = []
     for epoch in range(args.epochs):

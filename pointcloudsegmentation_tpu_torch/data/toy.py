@@ -83,12 +83,12 @@ def dense_batches(num_batches: int, batch_size: int, num_points: int = 512,
 
 
 def toy_batches(num_batches: int, batch_size: int, num_points: int = 2048,
-                seed: int = 0, kind: str = "room", num_classes: int = 13,
+                seed: int = 0, kind: str = "toy", num_classes: int = 13,
                 feat_dim: int = 12) -> Iterator[Dict]:
-    """``num_batches`` batches of ``batch_size`` padded blocks: room blocks
-    (``kind="room"``) or two-class toy clouds (``kind="toy"``, 3 features,
-    labels 0 and 1).  The default is ``"room"``, which every caller in
-    either package passes; the JAX function's default is ``"toy"``."""
+    """``num_batches`` batches of ``batch_size`` padded blocks: two-class
+    toy clouds (``kind="toy"``, the default as in JAX; 3 features, labels
+    0 and 1) or room blocks (``kind="room"``, which every caller that
+    trains a model passes)."""
     if kind not in ("room", "toy"):
         raise ValueError(f"kind must be room or toy: {kind}")
     rng = np.random.RandomState(seed)

@@ -52,8 +52,8 @@ _MESH_CFG = dict(model="tiny_s3dis", compute_dtype="float32")
 
 def _example_batch(batch_size, num_points=512):
     return next(toy.toy_batches(1, batch_size=batch_size,
-                                num_points=num_points, num_classes=13,
-                                feat_dim=12))
+                                num_points=num_points, kind="room",
+                                num_classes=13, feat_dim=12))
 
 
 def entry(device="cuda"):

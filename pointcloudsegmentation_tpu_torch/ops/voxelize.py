@@ -97,8 +97,10 @@ def voxelize_with_labels(xyz: torch.Tensor, mask: torch.Tensor,
 
 def diff_to_center(xyz: torch.Tensor, centers: torch.Tensor,
                    seg: torch.Tensor) -> torch.Tensor:
-    """Per-point offset from its voxel center (overflow points: xyz - 0)."""
-    return xyz - seg_ops.segment_unpool(centers, seg)
+    """Per-point offset from its voxel center (overflow points: xyz - 0).
+    The gradient flows only into ``xyz``, as JAX's ``stop_gradient`` on
+    the centers has it (JAX ``ops/voxelize.py:155-164``)."""
+    return xyz - seg_ops.segment_unpool(centers.detach(), seg)
 
 
 def voxel_majority_label(labels: torch.Tensor, mask: torch.Tensor,

@@ -64,7 +64,8 @@ def main(argv=None) -> Dict[str, Dict[str, float]]:
     cfg = s3dis_config(data_num_points=n, data_caps=(n // 2, n // 8),
                        data_feat_dim=12)
     tr = Trainer(cfg, device=device, search_chunk=2048)
-    batch = next(toy.toy_batches(1, batch_size=args.batch, num_points=n))
+    batch = next(toy.toy_batches(1, batch_size=args.batch, num_points=n,
+                                 kind="room"))
     holder = {"state": tr.init_state(torch.Generator().manual_seed(0))}
     dev_batch = to_device(batch, device)
 

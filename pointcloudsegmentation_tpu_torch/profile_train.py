@@ -126,7 +126,7 @@ def main(argv=None) -> int:
                       f"{b['ctx_mask'].shape[1]}", flush=True)
     else:
         host = toy.toy_batches(2, batch_size=BLOCKS, num_points=POINTS,
-                               num_classes=13, feat_dim=12)
+                               kind="room", num_classes=13, feat_dim=12)
     batches = [to_device(b, "cuda") for b in host]
     for i in range(2):                                   # build + warm-up
         state, m = trainer.train_step(state, batches[i])

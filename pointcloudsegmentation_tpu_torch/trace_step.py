@@ -47,7 +47,8 @@ def capture(logdir: str, num_points: int = 8192, batch: int = 4,
     cfg = s3dis_config(data_num_points=n, data_caps=(n // 2, n // 8),
                        data_feat_dim=12)
     tr = Trainer(cfg, device=device, search_chunk=2048)
-    b = to_device(next(toy.toy_batches(1, batch_size=batch, num_points=n)),
+    b = to_device(next(toy.toy_batches(1, batch_size=batch, num_points=n,
+                                       kind="room")),
                   device)
     state = tr.init_state(torch.Generator().manual_seed(0))
     for _ in range(STEPS):

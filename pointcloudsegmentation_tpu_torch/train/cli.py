@@ -175,6 +175,7 @@ def make_batches(cfg, args, split: str, batch_size: int):
         return lambda epoch: (_ablate(b, args.ablate_feats)
                               for b in toy.toy_batches(
                                   steps, batch_size, num_points=d.num_points,
+                                  kind="room",
                                   num_classes=d.num_classes,
                                   feat_dim=max(d.feat_dim, 1),
                                   seed=0 if split == "train" else 1))

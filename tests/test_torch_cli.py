@@ -3,9 +3,10 @@ CLI's config and LR, a ``tiny_s3dis`` run that checkpoints and writes the
 JAX CLI's metrics record, ``--restore --eval`` reproducing the epoch's test
 metrics, training from prepared room pkls, the feature ablations against
 the JAX CLI's, the scene eval on synthetic blocks and on a prepared room
-(with the 12-feature checkpoint), and one epoch of the training-curve
-run; ``--config semantic3d`` on Semantic3D block pkls, the scene eval's
-refusal of it, and its ignore label against the JAX preset's."""
+(with the 12-feature checkpoint), and one epoch of both arms of the
+training-curve run; ``--config semantic3d`` on Semantic3D block pkls, the
+scene eval's refusal of it, and its ignore label against the JAX
+preset's."""
 import dataclasses
 import json
 
@@ -234,10 +235,12 @@ def test_parity_ab_one_epoch(tmp_path):
                           "--out", str(out)])
     saved = json.load(open(out))
     assert saved == json.loads(json.dumps(res))
-    arm = saved["windowed"]
-    assert len(arm["curve"]) == 1 and 0.0 <= arm["best_miou"] <= 1.0
-    assert arm["final_miou"] == arm["curve"][0]["miou"]
-    assert np.isfinite(arm["curve"][0]["last_train_loss"])
+    for arm in (saved["windowed"], saved["exact"]):     # both by default
+        assert len(arm["curve"]) == 1 and 0.0 <= arm["best_miou"] <= 1.0
+        assert arm["final_miou"] == arm["curve"][0]["miou"]
+        assert np.isfinite(arm["curve"][0]["last_train_loss"])
+    assert saved["delta_best_miou"] == (saved["windowed"]["best_miou"]
+                                        - saved["exact"]["best_miou"])
     assert saved["config"]["train_rooms"] == 1 and "card" not in saved
 
 

@@ -103,6 +103,30 @@ def test_voxelize(voxel, cap):
         assert (_np(got.seg) == cap).sum() > (~mask).sum()
 
 
+@pytest.mark.parametrize("cap", [4096, 64])
+def test_diff_to_center_vjp(cap):
+    """The offset's vjp in ``xyz`` and in ``centers`` against ``jax.vjp``:
+    the centers take no gradient (JAX's ``stop_gradient``), and at cap 64
+    the overflow points' offsets are xyz - 0."""
+    xyz, _, mask = _block(3)
+    info = jvox.voxelize(xyz, mask, 0.45, 3.0, cap)
+    seg, cen = _np(info.seg), _np(info.centers)
+    if cap == 64:
+        assert (seg == cap).sum() > (~mask).sum()
+    g = np.random.RandomState(4).randn(*xyz.shape).astype(np.float32)
+    want, vjp = jax.vjp(lambda x, c: jvox.diff_to_center(x, c, seg), xyz, cen)
+    want_dx, want_dc = vjp(g)
+    tx = torch.from_numpy(xyz).requires_grad_()
+    tc = torch.from_numpy(cen).requires_grad_()
+    got = tvox.diff_to_center(tx, tc, torch.from_numpy(seg))
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(_np(got.detach()), _np(want), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_array_equal(_np(tx.grad), _np(want_dx))
+    assert not np.any(_np(want_dc))
+    assert tc.grad is None
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_pyramid_and_pools(seed):
     xyz, feats, mask = _block(seed)

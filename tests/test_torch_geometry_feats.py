@@ -163,8 +163,11 @@ def test_toy_two_class_batches():
     w = jtoy.toy_two_class_block(np.random.RandomState(0), 300)
     for key in w:
         np.testing.assert_array_equal(b[key], w[key])
-    # the port's default stays "room" (every caller's kind)
-    room = next(ttoy.toy_batches(1, 1, num_points=256))
+    # the default is JAX's ("toy"); rooms are asked for by name
+    plain = next(ttoy.toy_batches(1, 1, num_points=256))
+    np.testing.assert_array_equal(
+        plain["xyz"], next(jtoy.toy_batches(1, 1, num_points=256))["xyz"])
+    room = next(ttoy.toy_batches(1, 1, num_points=256, kind="room"))
     np.testing.assert_array_equal(
         room["xyz"], next(jtoy.toy_batches(1, 1, num_points=256,
                                            kind="room"))["xyz"])

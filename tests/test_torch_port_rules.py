@@ -89,7 +89,7 @@ def test_toy_copy_gives_the_jax_arrays(classes_feats):
     kw = dict(num_points=700, seed=3, num_classes=num_classes,
               feat_dim=feat_dim)
     want = list(jtoy.toy_batches(2, 3, kind="room", **kw))
-    got = list(ttoy.toy_batches(2, 3, **kw))
+    got = list(ttoy.toy_batches(2, 3, kind="room", **kw))
     for w, g in zip(want, got):
         assert w.keys() == g.keys()
         for key in w:
@@ -101,6 +101,19 @@ def test_toy_copy_gives_the_jax_arrays(classes_feats):
                                   num_classes, feat_dim)
     for key in w:
         np.testing.assert_array_equal(g[key], w[key])
+
+
+@pytest.mark.parametrize("name", ["toy_batches", "dense_batches",
+                                  "synthetic_room_block",
+                                  "toy_two_class_block"])
+def test_toy_signatures_keep_the_jax_defaults(name):
+    """A call that leaves an argument out gets JAX's blocks: the port's
+    parameters and their defaults are the JAX function's."""
+    def defaults(fn):
+        return [(p.name, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+
+    assert defaults(getattr(ttoy, name)) == defaults(getattr(jtoy, name))
 
 
 @pytest.mark.parametrize("n", [50, 130])   # padded, subsampled to 100 points

@@ -62,7 +62,8 @@ def _rank(rank, body, n, tmp):
 
 def tiny_batch():
     return next(toy.toy_batches(1, batch_size=GLOBAL_BLOCKS, num_points=N,
-                                num_classes=13, feat_dim=12, seed=4))
+                                kind="room", num_classes=13, feat_dim=12,
+                                seed=4))
 
 
 def dense_batch():
