@@ -283,6 +283,35 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    the arms' values), every last train loss finite, the card in the
    JSON; the windowed arm's launches as its trained and tested blocks
    count them, the exact arm's none.
+20. the search modes and the encoder settings, on phase 4's first toy
+   room block (Morton-sorted, caps 4096/1024) and phase 7's batches, full
+   width and depth, bf16 compute, seeded weights.  (a) The windowed
+   search's global selection (64 candidates, overflow pool 0 and 256,
+   slots and edges) at levels 0 and 1, card vs CPU from the same
+   pyramid: at least 0.999 of the valid slots equal, and in edges mode of
+   the edge rows, their geometry within 1e-6; ``verify_search_recall
+   --grid`` on the card (8192 points, seeds 0 and 1): the global contract
+   rows at least 0.99, the selection study's slab rows at least 0.94,
+   its global rows printed beside them.  (b) The wide overflow tier
+   (``ov_window=1024``, global selection) at level 0, slot for slot card
+   vs CPU, and ``gather_neighbors`` of F=64 bf16 features on it forward
+   (bitwise the CPU's) and backward: K2 bit for bit and K3 under phase
+   6's rules at the tier's slab of 2304 rows (K2's column-chunk path, K3's
+   third radix pass), and K2 at the global selection's geometry read,
+   timed as in phases 3 and 6.  (c) The flagship under
+   ``build_model(cfg, sel_mode="global", win_cand_k=64)`` (the JAX
+   build's ``PCS_SEL_MODE=global PCS_CAND_K=64``): a served block, 4
+   counted training steps on one batch with a finite loss that falls,
+   one step twice from one state bitwise equal, float32 card vs CPU
+   (argmax on at least 0.999 of the valid points, gradient cosine at
+   least 0.999), K2 and K3 as counted per block.  (d) One step with
+   ``remat=True`` beside one with ``remat=False`` from the same state:
+   the parameters afterwards compared bit for bit, each step's time (the
+   median of 3 more runs of it) and peak memory, K2 a block with the
+   gathers the backward recomputes.
+   (e) ``fast_conv=False`` (the plain ``PointNetConv`` for every concat
+   conv): a served block, one step beside the fast conv's (time, peak
+   memory), float32 card vs CPU as in (c).
 
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
@@ -373,6 +402,15 @@ P18_HELPER_TOL = 1e-6       # average_downsample's centers and features
 # phase 19: the exact-search training arm and the parity A/B
 P19_TIMED_STEPS = 3         # exact-arm train steps timed after the first
 P19_AB_TRAIN_ROOMS, P19_AB_TEST_ROOMS, P19_AB_EPOCHS = 2, 1, 1  # parity_ab
+# phase 20: the search modes and the encoder settings
+P20_LEVELS = (0, 1)         # the global search's levels
+P20_POOLS = (0, 256)        # ... its ov_pool_size
+P20_CAND_K = 64             # ... its candidates
+P20_OV_WINDOW = 1024        # the wide tier: 4 windows (JAX search.py:618-625)
+P20_GLOBAL = dict(sel_mode="global", win_cand_k=64)   # PCS_SEL_MODE=global
+#                                                       PCS_CAND_K=64
+P20_STEPS = 4               # training steps of the global flagship
+P20_TIMED_STEPS = 3         # (d), (e): the step again, timed; the median
 ECD_TIMED_STEPS = 3         # training steps timed after the counted first
 DSLAB_F32_RTOL = 1e-6       # slab-gradient kernel vs plain, float32
 GRAD_COSINE_MIN = 0.999     # flat gradient, float32 card vs CPU
@@ -491,8 +529,6 @@ def gather_shapes(model, cfg):
     in the model's compute dtype."""
     import torch
 
-    from pointcloudsegmentation_tpu_torch.models.pointnet import (
-        CAND_K, WIN_CAND_K)
     from pointcloudsegmentation_tpu_torch.ops import search
 
     enc = model.encoder
@@ -505,25 +541,33 @@ def gather_shapes(model, cfg):
             continue
         bands = [(mn, mx, k) for mx, mn, k in dict.fromkeys(
             enc.stage_specs(s))]
-        ck = search.effective_win_cand_k(WIN_CAND_K, CAND_K, bands, n)
+        ck = search.effective_win_cand_k(enc.win_cand_k, enc.cand_k, bands,
+                                         n)
         shapes.append((f"L{s} search xyzm", n, ck, 4, torch.float32))
         shapes.extend((f"L{s} conv", n, k, f, enc.dtype or torch.float32)
                       for lvl, k, f, _ in convs if lvl == s)
     return shapes
 
 
-def per_block(cfg):
+def per_block(cfg, **encoder_kw):
     """Kernel launches per block of a forward and of a training step of
-    ``cfg``'s model: K2 at every gather of ``gather_shapes``, and in the
-    backward K3 (map and sum kernels) at every windowed gather that takes
-    a gradient."""
+    ``cfg``'s model built with ``encoder_kw``: K2 at every gather of
+    ``gather_shapes`` (with ``remat=True`` again at each windowed conv's
+    gather, which the backward recomputes), and in the backward K3 (map
+    and sum kernels) at every windowed gather that takes a gradient."""
     from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
 
-    model = build_model(cfg, None, "cpu")
+    model = build_model(cfg, None, "cpu", **encoder_kw)
+    enc = model.encoder
     gathers = len(gather_shapes(model, cfg))
     trained = sum(grad for *_, grad in windowed_convs(model, cfg))
+    sizes = (cfg.data.num_points,) + tuple(cfg.data.caps)
+    recomputed = sum(
+        1 for s, st in enumerate(enc.arch.stages) for c in st.convs
+        if not (c.nofeats or c.noconcat) and sizes[s] % enc.win_tile == 0
+        and sizes[s] >= 4 * enc.win_tile) if enc.remat else 0
     return ({"window_gather": gathers},
-            {"window_gather": gathers, "window_dslab": trained,
+            {"window_gather": gathers + recomputed, "window_dslab": trained,
              "window_dslab_map": trained})
 
 
@@ -3836,8 +3880,6 @@ def p18_searches(enc, pyr, card):
     wmask) equal on at least EDGE_ROW_MIN, sxyz and d2 of the shared rows
     within EDGE_GEO_TOL; each level's edge demand (the rows a cap of 16 N
     keeps) against its cap.  Returns the card's launches."""
-    from pointcloudsegmentation_tpu_torch.models.pointnet import (
-        CAND_K, WIN_CAND_K)
     from pointcloudsegmentation_tpu_torch.ops import search
 
     total = dict(ZERO_COUNTS)
@@ -3856,10 +3898,10 @@ def p18_searches(enc, pyr, card):
             res = enc._stage_neighborhoods(x, m, *args)
             demand = search.windowed_multi_band_neighbors(
                 x, m, bands, tile=enc.win_tile, window=enc.win_window,
-                cand_k=search.effective_win_cand_k(WIN_CAND_K, CAND_K,
-                                                   bands, n),
+                cand_k=search.effective_win_cand_k(enc.win_cand_k,
+                                                   enc.cand_k, bands, n),
                 ov_slots=8, chunk=min(enc.search_chunk, n), ov_mode="edges",
-                edge_ratio=16)[0][1].mask.sum()
+                edge_ratio=16, sel_mode="slab")[0][1].mask.sum()
             return p18_move(res, "cpu"), int(demand)
 
         (dev, demand), counts, secs = run_path(
@@ -4461,6 +4503,428 @@ def phase_exact(card, slots):
     return total
 
 
+# -- phase 20: the search modes and the encoder settings -------------------
+
+def p20_block(cfg):
+    """The first toy room block (phase 4's), Morton-sorted on the CPU, and
+    its pyramid (CPU)."""
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.ops import hierarchy, morton
+
+    d = cfg.data
+    b = make_blocks("cpu")[0][0]
+    xs, ms, _ = morton.sort_block(b["xyz"], b["mask"], d.voxel_sizes[0] / 4,
+                                  d.block_size)
+    return hierarchy.build_pyramid(xs, ms, d.voxel_sizes, d.caps,
+                                   d.block_size, morton_sorted=True)
+
+
+def p20_level_bands(enc, s):
+    return tuple((mn, mx, k) for (mx, mn, k) in dict.fromkeys(
+        enc.stage_specs(s)))
+
+
+def p20_slot_share(host, dev):
+    """(valid slots differing, valid slots) over every band: each band's
+    global view (``to_neighborhood``), card against CPU."""
+    bad = total = 0
+    for h, d in zip(host, dev):
+        h, d = h[0].to_neighborhood(), d[0].to_neighborhood()
+        valid = h.mask | d.mask
+        bad += int((valid & ((h.mask != d.mask) | (h.idx != d.idx))).sum())
+        total += int(valid.sum())
+    return bad, total
+
+
+def p20_searches(pyr, enc, card):
+    """20 (a): the global selection (cand_k P20_CAND_K, pool 0 and 256,
+    slots and edges) at levels 0 and 1 on the card and on the CPU from the
+    same pyramid: valid slots equal on at least PARITY_NBR_MIN, in edges
+    mode the edge rows on at least EDGE_ROW_MIN with their geometry within
+    EDGE_GEO_TOL.  One K2 (the slab geometry read) a search.  Returns the
+    card's launches."""
+    from pointcloudsegmentation_tpu_torch.ops import search
+
+    total = dict(ZERO_COUNTS)
+    for s in P20_LEVELS:
+        lv = pyr.levels[s]
+        n = lv.xyz.shape[0]
+        bands = p20_level_bands(enc, s)
+        for pool in P20_POOLS:
+            for mode in ("slots", "edges"):
+                kw = dict(tile=256, window=256, cand_k=P20_CAND_K, ov_slots=8,
+                          chunk=1024, return_sxyz=True, ov_pool_size=pool,
+                          sel_mode="global", ov_mode=mode,
+                          edge_ratio=3 if s == 0 else 5)
+                host = search.windowed_multi_band_neighbors(
+                    lv.xyz, lv.mask, bands, **kw)
+                dev, counts, secs = run_path(
+                    f"L{s} global search ({n} points, P={pool}, {mode})",
+                    lambda: p18_move(search.windowed_multi_band_neighbors(
+                        lv.xyz.cuda(), lv.mask.cuda(), bands, **kw), "cpu"),
+                    {"window_gather": 1})
+                total = plus(total, counts)
+                bad, valid = p20_slot_share(host, dev)
+                share = 1.0 - bad / max(valid, 1)
+                msg = (f"[modes] L{s} global P={pool} {mode}: {bad} of "
+                       f"{valid} valid slots differ card vs CPU ({share:.6f}"
+                       f" equal, need >= {PARITY_NBR_MIN})")
+                check(share >= PARITY_NBR_MIN,
+                      f"L{s} global P={pool} {mode} slots {share}")
+                if mode == "edges":
+                    rows, geo = p18_edge_rows(host[0][2], dev[0][2], n)
+                    msg += (f"; edge rows shared {rows:.6f} (need >= "
+                            f"{EDGE_ROW_MIN}), sxyz/d2 max |d| {geo:.3e}")
+                    check(rows >= EDGE_ROW_MIN, f"L{s} edge rows {rows}")
+                    check(geo <= EDGE_GEO_TOL, f"L{s} edge geometry {geo}")
+                log(f"{msg} [{card}]")
+    return total
+
+
+def p20_recall(card):
+    """20 (a): ``verify_search_recall --grid`` on the card (8192 points,
+    seeds 0 and 1): the global contract rows (at least 0.99, phase 17's
+    gate) and the selection study's windowed rows, global beside slab;
+    the slab rows held to 0.94, the global rows printed (the tool marks
+    those under 0.94).  One K2 a windowed row."""
+    import contextlib
+    import io
+    import re
+
+    from pointcloudsegmentation_tpu_torch import verify_search_recall as vsr
+
+    buf = io.StringIO()
+
+    def grid():
+        with contextlib.redirect_stdout(buf):
+            try:
+                vsr.main(["--grid", "--device", "cuda"])
+            except SystemExit as e:
+                return e.code
+        return None
+
+    code, counts, secs = run_path(
+        f"verify_search_recall --grid ({N_POINTS} points)", grid,
+        {"window_gather": 2 * 6})
+    rows = 0
+    for line in buf.getvalue().splitlines():
+        log(f"[modes] {line} [{card}]" if "recall=" in line
+            else f"[modes] {line}")
+        m = re.search(r"recall=([0-9.]+)", line)
+        if m is None:
+            continue
+        r = float(m.group(1))
+        rows += 1
+        if line.startswith("global"):
+            check(r >= vsr.GLOBAL_MIN, f"global contract recall {line}")
+        elif "[slab" in line:
+            check(r >= vsr.WINDOWED_MIN, f"slab recall {line}")
+    check(rows == 2 * 3 + 6 * 2 * 3, f"{rows} recall rows")
+    log(f"[modes] --grid exit code {code} (1: a row under its threshold), "
+        f"{secs:.1f} s")
+    return counts
+
+
+def p20_wide(pyr, enc, card):
+    """20 (b): the wide tier (``sel_mode="global", ov_window=
+    P20_OV_WINDOW``) at level 0, card vs CPU slot for slot, then
+    ``gather_neighbors`` of F=64 bf16 features forward and backward on it
+    (K2 at the window and at the tier's width, K3 at both in the
+    backward), the forward bitwise the CPU's; K2 and K3 against their
+    plain versions at the tier's slab (S = T + 2 * P20_OV_WINDOW) and K2 at
+    the global selection's geometry read.  Returns (launches, K2 rows, K3
+    rows)."""
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.ops import neighbors, search
+
+    total = dict(ZERO_COUNTS)
+    lv = pyr.levels[0]
+    n, tile, window = lv.xyz.shape[0], 256, 256
+    bands = p20_level_bands(enc, 0)
+    kw = dict(tile=tile, window=window, cand_k=P20_CAND_K, ov_slots=8,
+              chunk=1024, return_sxyz=True, sel_mode="global",
+              ov_window=P20_OV_WINDOW)
+    host = search.windowed_multi_band_neighbors(lv.xyz, lv.mask, bands, **kw)
+    dev, counts, _ = run_path(
+        f"L0 wide-tier search ({n} points, ov_window={P20_OV_WINDOW})",
+        lambda: search.windowed_multi_band_neighbors(
+            lv.xyz.cuda(), lv.mask.cuda(), bands, **kw), {"window_gather": 2})
+    total = plus(total, counts)
+    bad, valid = p20_slot_share(host, p18_move(dev, "cpu"))
+    share = 1.0 - bad / max(valid, 1)
+    wide = sum(int(d[0].ov_mask.sum()) for d in dev)
+    log(f"[modes] L0 wide tier: {bad} of {valid} valid slots differ card vs "
+        f"CPU ({share:.6f} equal, need >= {PARITY_NBR_MIN}); {wide} valid "
+        f"wide-tier slots over {len(bands)} bands [{card}]")
+    check(share >= PARITY_NBR_MIN, f"wide tier slots {share}")
+    check(wide > 0, "no valid wide-tier slot")
+
+    wn_d, wn_h = dev[0][0], host[0][0]
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    feats = torch.randn((n, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    x = feats.clone().requires_grad_()
+
+    def fwd_bwd():
+        y = neighbors.gather_neighbors(x, wn_d)
+        y.backward(torch.ones_like(y))
+        return y
+
+    y, counts, _ = run_path(
+        "wide-tier gather_neighbors F=64 bf16, forward and backward",
+        fwd_bwd, {"window_gather": 2, "window_dslab": 2,
+                  "window_dslab_map": 2})
+    total = plus(total, counts)
+    want = neighbors.gather_neighbors(feats.cpu(), wn_h)
+    check(torch.equal(y.detach().cpu(), want),
+          "wide-tier gather card != CPU")
+    check(bool(torch.isfinite(x.grad.float()).all()),
+          "wide-tier gather gradient")
+    log(f"[modes] wide-tier gather {tuple(y.shape)} bitwise the CPU's; "
+        f"gradient finite")
+
+    lidx = wn_d.ov_idx.contiguous()
+    k2 = [k2_case(f"L0 wide tier W={P20_OV_WINDOW}", feats, lidx,
+                  P20_OV_WINDOW, tile, card)]
+    g = torch.randn((n, lidx.shape[1], 64), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k3 = [k3_case(f"L0 wide tier W={P20_OV_WINDOW}", g, lidx, P20_OV_WINDOW,
+                  tile, card)]
+    # the global selection's slab geometry read: xyzm rows at the clipped
+    # slab-local index of the P20_CAND_K global candidates
+    x_d, m_d = lv.xyz.cuda(), lv.mask.cuda()
+    _, ci = search._global_select(x_d, search.sqnorm3(x_d), m_d,
+                                  P20_CAND_K, 1024)
+    s = tile + 2 * window
+    lo = torch.arange(n, device="cuda") // tile * tile - window
+    lci = (ci - lo[:, None]).clamp(0, s - 1).to(torch.int32).contiguous()
+    xyzm = torch.cat([x_d, m_d.float()[:, None]], dim=-1).contiguous()
+    k2.append(k2_case("L0 global xyzm read", xyzm, lci, window, tile, card))
+    return total, k2, k3
+
+
+def p20_served(cfg, what, expect, card, **kw):
+    """One toy block served through ``eval_scene_probs`` by ``cfg``'s
+    model built with ``kw`` (seeded weights), counted: finite probabilities
+    whose rows sum to 1.  Returns the counts."""
+    import numpy as np
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.eval.interpolate import \
+        eval_scene_probs
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    model = build_model(cfg, torch.Generator().manual_seed(0), "cuda",
+                        **kw).eval()
+    blocks = make_blocks("cuda")[0][:1]
+    (_, probs), counts, secs = run_path(
+        f"{what} served block", lambda: eval_scene_probs(model, blocks),
+        expect)
+    dev = float(np.abs(probs.sum(1) - 1.0).max())
+    check(np.isfinite(probs).all() and dev <= PROB_SUM_TOL,
+          f"{what} served probs, rows sum to 1 +- {dev}")
+    log(f"[modes] {what} served block: probs {probs.shape} finite, rows sum "
+        f"to 1 +- {dev:.2e}, {secs:.2f} s")
+    return counts
+
+
+def p20_f32(cfg, batch, fwd, step, what, card, **kw):
+    """Float32 card vs CPU on block 0 of ``batch``, models built with
+    ``kw``: logits argmax on at least ECD_ARGMAX_MIN of the valid points
+    and the flat gradient's cosine (``f32_grad_cosine``).  Returns the
+    card's counts."""
+    import dataclasses
+
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    one = {k: v[:1].cpu() for k, v in batch.items()}
+    args = [one[k][0] for k in ("xyz", "feats", "mask")]
+    host = build_model(f32, torch.Generator().manual_seed(0), "cpu", **kw)
+    card_model = build_model(f32, torch.Generator().manual_seed(0), "cuda",
+                             **kw)
+    with torch.inference_mode():
+        want = host(*args)
+
+    def forward():
+        with torch.inference_mode():
+            return card_model(*(a.cuda() for a in args)).cpu()
+
+    got, total, _ = run_path(f"{what} float32 forward, one block", forward,
+                             fwd)
+    ok = args[2]
+    agree = float((got.argmax(1) == want.argmax(1))[ok].double().mean())
+    log(f"[modes] {what} float32 logits card vs CPU: argmax agreement "
+        f"{agree:.6f} over {int(ok.sum())} valid points (need >= "
+        f"{ECD_ARGMAX_MIN}), max |d| {(got - want).abs().max():.3e} [{card}]")
+    check(bool(torch.isfinite(got).all()), f"{what} float32 logits")
+    check(agree >= ECD_ARGMAX_MIN, f"{what} argmax agreement {agree}")
+    del host, card_model
+    return plus(total, f32_grad_cosine(f32, one, step, what, card, **kw))
+
+
+def p20_step_pair(cfg, batch, expect, what, **kw):
+    """One counted Trainer step of ``cfg``'s model built with ``kw`` from
+    the seeded initial state, then the same step P20_TIMED_STEPS times
+    more, each timed alone, the peak memory reset before them: each
+    bitwise equal to the first.  Returns (parameters after the step, loss,
+    the median seconds, peak GiB, counts)."""
+    import math
+
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(cfg, device="cuda", **kw)
+    state0 = trainer.init_state(torch.Generator().manual_seed(0))
+    (st, m), counts, _ = run_path(f"{what} train step",
+                                  lambda: trainer.train_step(state0, batch),
+                                  expect)
+    loss = float(m["loss"])
+    check(math.isfinite(loss) and int(m["skipped"]) == 0,
+          f"{what} step loss {loss}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(P20_TIMED_STEPS):
+        t0 = time.perf_counter()
+        again, _ = trainer.train_step(state0, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        check(torch.equal(st.params, again.params),
+              f"{what}: two runs of one step differ")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    secs = sorted(secs)[len(secs) // 2]
+    params = st.params.cpu()
+    del trainer, state0, st, again
+    torch.cuda.empty_cache()
+    return params, loss, secs, peak, counts
+
+
+def p20_flagship(cfg, card):
+    """20 (c): the flagship under ``build_model(cfg, **P20_GLOBAL)`` (the
+    JAX build's ``PCS_SEL_MODE=global PCS_CAND_K=64``), full width and
+    depth, bf16 compute, seeded weights: a served block, P20_STEPS counted
+    training steps on phase 7's first batch with a finite loss that
+    falls, one step twice from one state bitwise equal, float32 card vs
+    CPU.  Returns the launches."""
+    import math
+
+    import torch
+
+    from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+
+    fwd, step = per_block(cfg, **P20_GLOBAL)
+    total = p20_served(cfg, "global", fwd, card, **P20_GLOBAL)
+    batches = make_train_batches("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, device="cuda", **P20_GLOBAL)
+    enc = trainer.model.encoder
+    check((enc.sel_mode, enc.win_cand_k) == ("global", 64),
+          "the global settings did not reach the encoder")
+    state0 = trainer.init_state(torch.Generator().manual_seed(0))
+    log(f"[modes] pointnet_s3dis {P20_GLOBAL} {cfg.compute_dtype}: "
+        f"launches per block {fwd} forward, {step} training step")
+
+    def steps():
+        st, losses, times_s = state0, [], []
+        for _ in range(P20_STEPS):
+            t0 = time.perf_counter()
+            st, mm = trainer.train_step(st, batches[0])
+            losses.append(float(mm["loss"]))
+            times_s.append(time.perf_counter() - t0)
+        return st, losses, times_s
+
+    (state, losses, times_s), counts, _ = run_path(
+        f"global {P20_STEPS} train steps ({TRAIN_BLOCKS} x {N_POINTS} "
+        "points)", steps, times(step, TRAIN_BLOCKS * P20_STEPS))
+    total = plus(total, counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = sum(times_s[1:]) / (P20_STEPS - 1)
+    log(f"[modes] global losses {', '.join(f'{v:.5f}' for v in losses)}; "
+        f"{step_s:.4f} s a step after the first ({times_s[0]:.2f} s), peak "
+        f"{peak:.3f} GiB [{card}]")
+    check(all(math.isfinite(v) for v in losses), "global loss not finite")
+    check(losses[-1] < losses[0], f"global loss did not fall: {losses}")
+    total = plus(total, step_twice(trainer, state0, batches[0],
+                                   times(step, 2 * TRAIN_BLOCKS), "global"))
+    del trainer, state0, state
+    torch.cuda.empty_cache()
+    return plus(total, p20_f32(cfg, batches[0], fwd, step, "global", card,
+                               **P20_GLOBAL))
+
+
+def p20_settings(cfg, card):
+    """20 (d) and (e): one step with ``remat=True`` beside one with
+    ``remat=False`` from the same state (the parameters afterwards
+    compared bit for bit, each step's time and peak memory, K2 a block
+    with the recomputed gathers), then ``fast_conv=False``: a served
+    block, one step beside the fast conv's, float32 card vs CPU.  Returns
+    the launches."""
+    import torch
+
+    total = dict(ZERO_COUNTS)
+    batch = make_train_batches("cuda")[0]
+    runs = {}
+    for remat in (False, True):
+        _, step = per_block(cfg, remat=remat)
+        runs[remat] = p20_step_pair(cfg, batch, times(step, TRAIN_BLOCKS),
+                                    f"remat={remat}", remat=remat)
+        total = plus(total, runs[remat][4])
+        log(f"[modes] remat={remat}: K2 {step['window_gather']} a training "
+            f"block, loss {runs[remat][1]:.6f}, step {runs[remat][2]:.4f} s,"
+            f" peak {runs[remat][3]:.3f} GiB [{card}]")
+    d = (runs[True][0] - runs[False][0]).abs()
+    log(f"[modes] remat=True vs remat=False after one step: parameters "
+        f"bitwise equal {bool(torch.equal(runs[True][0], runs[False][0]))}, "
+        f"{int((d > 0).sum())} of {d.numel()} differ, max |d| "
+        f"{float(d.max()):.3e}")
+
+    fwd, step = per_block(cfg, fast_conv=False)
+    total = plus(total, p20_served(cfg, "fast_conv=False", fwd, card,
+                                   fast_conv=False))
+    plain = p20_step_pair(cfg, batch, times(step, TRAIN_BLOCKS),
+                          "fast_conv=False", fast_conv=False)
+    total = plus(total, plain[4])
+    fast = runs[False]
+    log(f"[modes] fast_conv=False: launches per block {fwd} forward, {step} "
+        f"training step; loss {plain[1]:.6f}, step {plain[2]:.4f} s, peak "
+        f"{plain[3]:.3f} GiB; the fast conv's {fast[2]:.4f} s, "
+        f"{fast[3]:.3f} GiB [{card}]")
+    return plus(total, p20_f32(cfg, batch, fwd, step, "fast_conv=False",
+                               card, fast_conv=False))
+
+
+def phase_modes(card):
+    """20: the search modes and the encoder settings on the card (see the
+    docstring).  Returns (launches, K2 rows, K3 rows)."""
+    from pointcloudsegmentation_tpu_torch.config import s3dis_config
+    from pointcloudsegmentation_tpu_torch.train.model_zoo import build_model
+
+    cfg = s3dis_config()
+    pyr = p20_block(cfg)
+    enc = build_model(cfg, None, "cpu").encoder
+    t0 = time.perf_counter()
+    total = p20_searches(pyr, enc, card)
+    total = plus(total, p20_recall(card))
+    log(f"[modes] part (a) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts, k2, k3 = p20_wide(pyr, enc, card)
+    total = plus(total, counts)
+    log(f"[modes] part (b) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    total = plus(total, p20_flagship(cfg, card))
+    log(f"[modes] part (c) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    total = plus(total, p20_settings(cfg, card))
+    log(f"[modes] parts (d), (e) in {time.perf_counter() - t0:.1f} s")
+    return total, k2, k3
+
+
 def main() -> int:
     try:
         import torch
@@ -4547,6 +5011,12 @@ def main() -> int:
     exact_launches = phase_exact(card, (train_pps, peak))
     log(f"[exact] phase 19 in {time.perf_counter() - t19:.1f} s")
     entry_launches = plus(entry_launches, exact_launches)
+    t20 = time.perf_counter()
+    modes_launches, k2_modes, k3_modes = phase_modes(card)
+    log(f"[modes] phase 20 in {time.perf_counter() - t20:.1f} s")
+    rows += k2_modes
+    drows += k3_modes
+    entry_launches = plus(entry_launches, modes_launches)
 
     main_row = next(r for r in rows if r["name"].endswith("conv"))
     dmain, fmain = drows[0], frows[0]
@@ -4561,8 +5031,8 @@ def main() -> int:
         f"the ECD family's, the GPN family's, the composite models', the "
         f"Semantic3D pipelines', the Semantic3D scan's, the parallel "
         f"paths' (every rank's), the tools', the edge list's and conv "
-        f"tail's and the windowed-vs-exact A/B's, and the fused-conv "
-        f"bench's; "
+        f"tail's, the windowed-vs-exact A/B's and the search modes' and "
+        f"encoder settings', and the fused-conv bench's; "
         f"eval "
         f"{pps:.1f} "
         f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "

@@ -72,7 +72,7 @@ def setup(level: int, device="cuda", n: int = None,
     (pair,) = search.windowed_multi_band_neighbors(
         xs, ms, ((0.0, spec["radius"], spec["k"]),), tile=TILE,
         window=WINDOW, cand_k=32, ov_slots=8, ov_pool_size=256,
-        return_sxyz=True, chunk=2048)
+        return_sxyz=True, chunk=2048, sel_mode="slab")
     wn, sxyz = pair
     gen = torch.Generator().manual_seed(0)
     feats = torch.randn((n, spec["f"]), generator=gen).to(device)

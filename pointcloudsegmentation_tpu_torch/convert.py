@@ -3,7 +3,11 @@ trainer state.
 
 Submodules keep the flax names, so a flax path maps to a torch key one to
 one: ``params/encoder/feats0/fc_0_nbr/kernel`` becomes
-``encoder.feats0.fc_0_nbr.weight``.  Flax ``Dense`` kernels are [in, out];
+``encoder.feats0.fc_0_nbr.weight``.  An encoder built with
+``fast_conv=False`` has the plain ``PointNetConv``'s ``fc_{i}`` and
+``fc_out`` under ``feats{i}``, as the flax tree has; ``remat=True``
+(``nn.remat`` in flax, ``torch.utils.checkpoint`` here) renames
+nothing.  Flax ``Dense`` kernels are [in, out];
 torch ``Linear`` weights are [out, in], so kernels are transposed.  The
 other leaves, biases, ``MaskedBatchNorm``'s ``scale``, the ECD convs'
 ``edge_weights_trans``, the GPN convs' ``pw`` and trainable ``pmiu``,

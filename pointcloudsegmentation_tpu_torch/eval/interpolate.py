@@ -4,7 +4,8 @@ cloud, and the Semantic3D ``.labels`` submission (mirror of
 ``pointcloudsegmentation_tpu.eval.interpolate``)."""
 from __future__ import annotations
 
-from typing import Dict, Iterable, Iterator, Sequence, Tuple, Union
+from typing import (Dict, Iterable, Iterator, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -84,22 +85,23 @@ Array = Union[np.ndarray, torch.Tensor]
 
 def interpolate_to_dense(sxyz: Array, sprobs: Array, qxyz: Array, k: int = 6,
                          ratio: float = S3DIS_RATIO, chunk: int = 200_000,
-                         prefer_native: bool = True) -> Array:
+                         prefer_native: Optional[bool] = None) -> Array:
     """Gaussian k-NN interpolation of the sampled points' probabilities
     onto the dense cloud (JAX ``eval/interpolate.py:90-123``).
 
-    ``prefer_native=True`` (the default): the native host library's hash
-    grid k-NN (``csrc/pointutil.cpp``, built at first use; a failed build
-    raises), on numpy arrays.  ``prefer_native=False``: the device arm,
-    ``ops.interpolate.interpolate_probs_exact`` on the device of the arrays
-    passed in (numpy arrays: the CPU), over ``chunk`` queries at a time; it
-    returns a tensor there.  Unlike the JAX device arm, whose k-NN scores
+    ``prefer_native=True``, or None (the default, JAX's, which there
+    falls back to the device arm without a native library): the native
+    host library's hash grid k-NN (``csrc/pointutil.cpp``, built at first
+    use; a failed build raises), on numpy arrays.  ``prefer_native=False``:
+    the device arm, ``ops.interpolate.interpolate_probs_exact`` on the
+    device of the arrays passed in (numpy arrays: the CPU), over ``chunk``
+    queries at a time; it returns a tensor there.  Unlike the JAX device arm, whose k-NN scores
     the expanded ``|q|² + |s|² - 2 q·s``, it ranks the support by the
     distances of the coordinate differences, rounded as the native library
     rounds them (``ops.interpolate.knn_exact``), so both arms take the same
     neighbours.  The choice of arm is the caller's: neither stands in for
     the other."""
-    if prefer_native:
+    if prefer_native is None or prefer_native:
         return native.interpolate_probs(np.asarray(sxyz), np.asarray(sprobs),
                                         np.asarray(qxyz), k, ratio,
                                         cell_hint=0.3)

@@ -89,8 +89,10 @@ class ContextFusionModel(nn.Module):
     ctx_voxel_size, ctx_cap, ctx_block_size = 5.0, CTX_CAP, 50.0
 
     def __init__(self, encoder: nn.Module, num_classes: int,
-                 voxel_sizes: Tuple[float, ...], caps: Tuple[int, ...],
-                 block_size: float, dtype: Optional[torch.dtype] = None):
+                 voxel_sizes: Tuple[float, ...] = (0.25, 1.0),
+                 caps: Tuple[int, ...] = (5120, 1280),
+                 block_size: float = 10.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.encoder = encoder
         self.context = ContextNet(dtype=dtype)

@@ -402,7 +402,7 @@ class ProbsDiffusion(nn.Module):
     ``sigmoid(alpha)``.  ``alpha`` [1] starts at 0 (a weight of 0.5) and no
     Glorot draw touches it."""
 
-    def __init__(self, steps: int):
+    def __init__(self, steps: int = 3):
         super().__init__()
         self.steps = steps
         self.alpha = nn.Parameter(torch.zeros(1))
@@ -431,7 +431,7 @@ class SegClassifier(nn.Module):
     generator."""
 
     def __init__(self, num_classes: int, in_dim: int, pfeat_dim: int,
-                 premixed: bool = True, dropout_rate: float = 0.3,
+                 premixed: bool = False, dropout_rate: float = 0.3,
                  dtype: Optional[torch.dtype] = None,
                  dims: Tuple[int, ...] = (512, 256), use_pfeats: bool = True):
         super().__init__()
@@ -477,9 +477,7 @@ class SegClassifier(nn.Module):
 def classifier_v2(num_classes: int, in_dim: int, **kw) -> SegClassifier:
     """``classifier_v2`` (JAX ``models/layers.py:382-385``): 256/128, no
     local-feature concat, so no ``pfeat_dim``.  Unfactored (``class_mlp1``
-    on ``in_dim`` columns) unless ``premixed=True`` is passed, as the JAX
-    constructors default."""
-    kw.setdefault("premixed", False)
+    on ``in_dim`` columns) unless ``premixed=True`` is passed."""
     return SegClassifier(num_classes, in_dim, 0, dims=(256, 128),
                          use_pfeats=False, **kw)
 
@@ -488,7 +486,6 @@ def classifier_v4(num_classes: int, in_dim: int, pfeat_dim: int,
                   **kw) -> SegClassifier:
     """``classifier_v4`` (JAX ``:388-390``): 256/128 with the local-feature
     concats; unfactored unless ``premixed=True``."""
-    kw.setdefault("premixed", False)
     return SegClassifier(num_classes, in_dim, pfeat_dim, dims=(256, 128),
                          **kw)
 
@@ -498,5 +495,4 @@ def classifier_v5(num_classes: int, in_dim: int, pfeat_dim: int,
     """``classifier_v5`` (JAX ``:393-397``): the same structure as v3, the
     named constructor of the refine cascade's heads; unfactored unless
     ``premixed=True``."""
-    kw.setdefault("premixed", False)
     return SegClassifier(num_classes, in_dim, pfeat_dim, **kw)

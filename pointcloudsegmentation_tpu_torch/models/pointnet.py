@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import hierarchy as hier
 from ..ops import search
@@ -286,12 +287,9 @@ def no_dilation(arch: Arch) -> Arch:
 S3DIS_EMBED_ARCH = no_dilation(S3DIS_ARCH)
 
 
-# search settings of the JAX package's production build (train/model_zoo.py
-# build_model and PointNetSegEncoder defaults)
-CAND_K = 64          # global search candidates
-WIN_CAND_K = 32      # windowed slab candidates
-OV_SLOTS = 8         # overflow slots per band
-OV_POOL_SIZE = 256   # tile-shared overflow pool
+# settings of the JAX package's production build (train/model_zoo.py
+# build_model), which it passes the encoder in place of the field defaults
+OV_POOL_SIZE = 256   # tile-shared overflow pool (PCS_OV_POOL's default)
 HEAD_DIM = 512       # factored head width (SegClassifier's first layer)
 
 
@@ -305,12 +303,23 @@ class PointNetSegEncoder(nn.Module):
     xyz-only and that drops the avg-pooled cascade reads none of them, so
     any width will do there.
 
-    Levels that are Morton-sorted, tile-aligned and at least 4 tiles long
-    take the windowed search (tile/window 256 by default); the others take
-    the global search.  The windowed search's overflow slots read through
-    a tile-shared pool of ``ov_pool_size`` rows (the JAX build's 256), or
-    with 0 hold per-point global indices (the flax default, which the JAX
-    ``dense_semantic3d`` build keeps).
+    The settings are the JAX encoder's fields, with its defaults
+    (``models/pointnet.py:374-427``).  Levels that are Morton-sorted,
+    tile-aligned and at least 4 tiles long take the windowed search (tile
+    ``win_tile``, window ``win_window``, ``sel_mode`` selection over
+    ``effective_win_cand_k(win_cand_k, cand_k, ...)`` candidates,
+    ``ov_slots`` overflow slots per band); the others take the global
+    search over ``min(cand_k, n)`` candidates.  The windowed search's
+    overflow slots read through a tile-shared pool of ``ov_pool_size``
+    rows (the JAX build passes 256, ``OV_POOL_SIZE``), or with 0 (the
+    field default, which the JAX ``dense_semantic3d`` build keeps) hold
+    per-point global indices.
+
+    ``fast_conv=False`` builds the plain ``PointNetConv`` (the per-slot
+    ``[center ‖ neighbor ‖ sxyz]`` MLP) for every concat conv in place of
+    ``PointNetConvFast``; ``remat=True`` recomputes each concat conv's
+    forward in the backward (``torch.utils.checkpoint``, as JAX applies
+    ``nn.remat``) instead of keeping its activations.
 
     ``ov_mode="edges"`` (JAX ``models/pointnet.py:388-392``) replaces the
     overflow slots by one shared ``EdgeOverflow`` per windowed level, of
@@ -320,11 +329,14 @@ class PointNetSegEncoder(nn.Module):
     no part."""
 
     def __init__(self, feat_dim: int, arch: Arch = S3DIS_ARCH,
-                 head_dim: Optional[int] = HEAD_DIM,
-                 search_chunk: int = 1024, win_tile: int = 256,
-                 win_window: int = 256, ov_pool_size: int = OV_POOL_SIZE,
-                 dtype: Optional[torch.dtype] = None, windowed: bool = True,
-                 ov_mode: str = "slots"):
+                 search_chunk: int = 1024, cand_k: int = 64,
+                 fast_conv: bool = True, windowed: bool = True,
+                 win_tile: int = 256, win_window: int = 256,
+                 ov_slots: int = 8, ov_mode: str = "slots",
+                 ov_pool_size: int = 0, sel_mode: str = "slab",
+                 win_cand_k: Optional[int] = 32,
+                 head_dim: Optional[int] = None, remat: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if head_dim is not None and arch.decoder == "deconv":
             raise ValueError("the factored head needs the linear concat "
@@ -336,9 +348,15 @@ class PointNetSegEncoder(nn.Module):
         self.arch = arch
         self.head_dim = head_dim
         self.search_chunk = search_chunk
+        self.cand_k = cand_k
+        self.win_cand_k = win_cand_k
         self.win_tile = win_tile
         self.win_window = win_window
+        self.ov_slots = ov_slots
         self.ov_pool_size = ov_pool_size
+        self.sel_mode = search.resolve_sel_mode(sel_mode)
+        self.fast_conv = fast_conv
+        self.remat = remat
         self.windowed = windowed
         self.dtype = dtype
         n_stages = len(arch.stages)
@@ -372,8 +390,8 @@ class PointNetSegEncoder(nn.Module):
                     conv = PointNetConv(fin, c.fc_dims, c.out,
                                         concat_growth=False, dtype=dtype)
                 else:
-                    conv = PointNetConvFast(fin, c.fc_dims, c.out,
-                                            dtype=dtype)
+                    conv_cls = PointNetConvFast if fast_conv else PointNetConv
+                    conv = conv_cls(fin, c.fc_dims, c.out, dtype=dtype)
                 self.add_module(name, conv)
                 w += c.out
             stage_widths.append(w)
@@ -422,18 +440,20 @@ class PointNetSegEncoder(nn.Module):
         chunk = min(self.search_chunk, n)
         if (self.windowed and is_sorted and n % self.win_tile == 0
                 and n >= 4 * self.win_tile):
+            # no wide overflow tier: the JAX encoder passes ov_window=0
             res = search.windowed_multi_band_neighbors(
                 xyz, mask, bands, tile=self.win_tile, window=self.win_window,
-                cand_k=search.effective_win_cand_k(WIN_CAND_K, CAND_K,
-                                                   bands, n),
-                ov_slots=OV_SLOTS, chunk=chunk,
+                cand_k=search.effective_win_cand_k(self.win_cand_k,
+                                                   self.cand_k, bands, n),
+                ov_slots=self.ov_slots, chunk=chunk,
                 ov_pool_size=self.ov_pool_size, return_sxyz=True,
-                ov_mode=self.ov_mode, edge_ratio=edge_ratio)
+                ov_mode=self.ov_mode, edge_ratio=edge_ratio,
+                sel_mode=self.sel_mode)
             if self.ov_mode == "edges":
                 return dict(zip(uniq, res))
         else:
             res = search.multi_band_neighbors(
-                xyz, mask, bands, cand_k=min(CAND_K, n), chunk=chunk,
+                xyz, mask, bands, cand_k=min(self.cand_k, n), chunk=chunk,
                 return_sxyz=True)
         return {spec: (nbr, sx, None) for spec, (nbr, sx) in zip(uniq, res)}
 
@@ -503,8 +523,12 @@ class PointNetSegEncoder(nn.Module):
                 if c.embed is not None:
                     fin = getattr(self, f"embed{embed_idx}")(feats)
                     embed_idx += 1
-                feats = torch.cat([feats, conv(sxyz, fin, nbr, **ekw)],
-                                  dim=-1)
+                if self.remat and not c.noconcat:
+                    out = checkpoint(conv, sxyz, fin, nbr, use_reentrant=False,
+                                     **ekw)
+                else:
+                    out = conv(sxyz, fin, nbr, **ekw)
+                feats = torch.cat([feats, out], dim=-1)
             stage_feats.append(feats)
             if s < n_stages - 1:
                 parts = [avg_feats[s + 1]] if arch.use_avg_feats else []
@@ -553,7 +577,7 @@ class PointNet2Baseline(nn.Module):
     output, stage-0 feats) for the unfactored head."""
 
     head_dim = None
-    cand_k = CAND_K
+    cand_k = 64
     # (radius, k, fc_a, out_a, fc_b, out_b) per unit; stage 2 units use
     # (radius, k, fc_a, out_a, anchor_weights, anchor_out, anchor_num)
     STAGE0 = ((0.15, 32, (8,), 8, (8, 16), 16),

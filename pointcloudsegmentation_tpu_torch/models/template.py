@@ -73,7 +73,8 @@ class GenericStage(nn.Module):
     Glorot draw) over the valid slots, the anchor-weighted sum of the
     gathered features in float32, then ReLU ``{name}_fc_out``."""
 
-    def __init__(self, spec: ECDStageSpec, in_dim: int, conv: str,
+    def __init__(self, spec: ECDStageSpec, in_dim: int,
+                 conv: str = "pointnet",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         if conv not in CONVS:

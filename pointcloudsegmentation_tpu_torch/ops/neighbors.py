@@ -7,8 +7,10 @@ the window-gather kernel forward and the slab-gradient kernel plus a dense
 overlap-add backward on CUDA.  Where the JAX CPU path clips a slab index
 into the block, the kernel reads zero padding; the two agree wherever a
 result is used, because invalid slots self-pad and every valid slot names a
-row inside the block.  The overflow slots, pooled or per point, are plain
-indexing, whose backward is PyTorch's sort-based index accumulation."""
+row inside the block.  Overflow slots in the wide tier (``ov_window > 0``)
+go through ``WindowGather`` too, at ``window=ov_window``; pooled or per
+point, they are plain indexing, whose backward is PyTorch's sort-based
+index accumulation."""
 from __future__ import annotations
 
 import torch
@@ -53,16 +55,20 @@ def gather_neighbors(feats: torch.Tensor, nbr) -> torch.Tensor:
     """Point features [N, F] -> per-slot neighbor features [N, K, F].
     Invalid slots hold the center's own features; callers mask.  A
     WindowedNeighborhood gives the [N, K + Ko, F] combined view; its
-    per-point overflow slots (``pool_idx`` None) are a plain row gather,
-    as in JAX ``ops/neighbors.py:189``."""
+    wide-tier overflow slots (``ov_window > 0``) are the windowed gather at
+    ``window=ov_window`` (JAX ``ops/neighbors.py:186-187``), its per-point
+    overflow slots a plain row gather (JAX ``:189``)."""
     if isinstance(nbr, WindowedNeighborhood):
         win = windowed_gather(feats, nbr)
         if nbr.ov_idx.shape[-1] == 0:
             return win
-        if nbr.pool_idx is None:
-            ov = feats[nbr.ov_idx.long()]
-        else:
+        if nbr.pool_idx is not None:
             ov = _pool_gather(feats, nbr)
+        elif nbr.ov_window > 0:
+            ov = WindowGather.apply(feats.contiguous(), nbr.ov_idx,
+                                    nbr.ov_window, nbr.tile)
+        else:
+            ov = feats[nbr.ov_idx.long()]
         return torch.cat([win, ov], dim=1)
     return feats[nbr.idx.long()]
 

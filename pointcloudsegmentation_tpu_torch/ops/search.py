@@ -1,7 +1,7 @@
 """Fixed-K multi-band neighbor search (mirror of
-``pointcloudsegmentation_tpu.ops.search`` in its production configurations:
-windowed slab selection with a tile-shared overflow pool, with per-point
-overflow slots or with a shared overflow edge list; the global search for
+``pointcloudsegmentation_tpu.ops.search``: the windowed search with slab or
+global selection, a tile-shared overflow pool, per-point overflow slots, a
+wide overflow tier or a shared overflow edge list; the global search for
 levels too small to window, and the dispatch between them,
 ``band_neighbors_auto``), the radius and annulus searches, and the k
 nearest support points of another cloud, ``knn_in_support``.
@@ -251,37 +251,63 @@ def multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor, bands,
     return tuple(out)
 
 
+def resolve_sel_mode(sel_mode: str) -> str:
+    """Reject an unknown windowed selection strategy (JAX ``ops/search.py:
+    424-435``): a typo such as ``"salb"`` raises instead of running another
+    search.  The JAX version also reads ``PCS_SEL_MODE`` from the
+    environment; the port takes the strategy as an argument only."""
+    if sel_mode not in ("slab", "global"):
+        raise ValueError(f"sel_mode must be 'slab' or 'global', got "
+                         f"{sel_mode!r}")
+    return sel_mode
+
+
 def windowed_multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
                                   bands, tile: int = 256, window: int = 256,
                                   cand_k: int = 64, ov_slots: int = 8,
                                   chunk: int = 2048,
-                                  ov_pool_size: int = 256,
                                   return_sxyz: bool = False,
                                   ov_mode: str = "slots",
-                                  edge_ratio: int = 2):
+                                  edge_ratio: int = 2, ov_window: int = 0,
+                                  ov_pool_size: int = 0,
+                                  sel_mode: str = "global"):
     """Multi-band search for MORTON-SORTED points, split into windowed slots
-    and an overflow tier (``sel_mode="slab"``): per-point overflow slots
-    (``ov_mode="slots"``) or one shared edge list (``ov_mode="edges"``).
+    and an overflow tier: per-point overflow slots (``ov_mode="slots"``) or
+    one shared edge list (``ov_mode="edges"``).  JAX ``ops/search.py:
+    490-766``, with its defaults; the port selects exactly, so it has no
+    ``recall_target`` or ``use_approx``.
 
-    Each tile of ``tile`` points selects its ``cand_k`` nearest candidates
-    from its slab ``[t*tile - window, t*tile + tile + window)``; a global
-    pass over the out-of-slab columns picks ``2*ov_slots`` overflow
-    candidates per point.  With ``ov_pool_size > 0`` they are deduped per
-    tile into a pool of that size and the overflow slots hold pool
-    positions; with 0 the overflow slots hold per-point global indices,
-    their geometry read by plain row indexing (JAX ``ops/search.py:684-686,
-    745-752``).  Every band then compacts both tiers.  Returns a tuple of
-    WindowedNeighborhood per band, or of (WindowedNeighborhood, sxyz
-    [N, K+Ko, 3]) pairs.
+    Selection (``sel_mode``):
 
-    ``ov_mode="edges"`` (JAX ``:695-737``) takes ``min(16, cand_k)``
-    out-of-slab candidates per point, reads their rows directly (no pool,
-    whatever ``ov_pool_size``), and keeps those within the level's loosest
-    band limits in one ``EdgeOverflow`` of ``edge_ratio * N`` rows
-    (``_edge_list``).  Each band's WindowedNeighborhood then has no
-    overflow slots (Ko = 0), and every band returns the same edge list:
-    (WindowedNeighborhood, edges), or (WindowedNeighborhood, sxyz
-    [N, K, 3], edges) with ``return_sxyz``."""
+    - ``"global"``: per query chunk the ``cand_k`` nearest valid points by
+      selection score over all N columns; the candidates inside the point's
+      slab ``[t*tile - window, t*tile + tile + window)`` fill the windowed
+      tier (slab-local, their geometry read by the window-gather kernel at
+      the clipped slab-local index), and the out-of-slab ones, ranked by
+      their selection scores, form an overflow pool of ``2*ov_slots``
+      (``min(16, cand_k)`` in edges mode).
+    - ``"slab"``: each tile selects its ``cand_k`` nearest candidates from
+      its slab ([nt, T, S] scores), and a global pass over the out-of-slab
+      columns picks the overflow pool.
+
+    With ``ov_pool_size > 0`` the overflow candidates are deduped per tile
+    into a pool of that size and the overflow slots hold pool positions;
+    with 0 they hold per-point global indices, their geometry read by plain
+    row indexing.  With ``ov_window > 0`` (global selection only; a
+    multiple of the tile, at least ``window``) the overflow pool keeps only
+    candidates in the wide tier ``[t*tile - ov_window, t*tile + tile +
+    ov_window)``, held slab-local there and read by the window-gather
+    kernel at ``window=ov_window``; neighbors beyond it drop.  Every band
+    then compacts both tiers.  Returns a tuple of WindowedNeighborhood per
+    band, or of (WindowedNeighborhood, sxyz [N, K+Ko, 3]) pairs.
+
+    ``ov_mode="edges"`` (JAX ``:695-739``) reads the overflow pool's rows
+    without a tile pool (whatever ``ov_pool_size``) and keeps those within
+    the level's loosest band limits in one ``EdgeOverflow`` of
+    ``edge_ratio * N`` rows (``_edge_list``).  Each band's
+    WindowedNeighborhood then has no overflow slots (Ko = 0), and every
+    band returns the same edge list: (WindowedNeighborhood, edges), or
+    (WindowedNeighborhood, sxyz [N, K, 3], edges) with ``return_sxyz``."""
     n = xyz.shape[0]
     if n % tile or window % tile:
         raise ValueError(f"need N % tile == 0 and window % tile == 0 "
@@ -290,70 +316,81 @@ def windowed_multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"ov_pool_size must be >= 0, got {ov_pool_size}")
     if ov_mode not in ("slots", "edges"):
         raise ValueError(f"ov_mode must be slots or edges: {ov_mode}")
+    sel_mode = resolve_sel_mode(sel_mode)
+    if ov_window and sel_mode == "slab":
+        raise ValueError("slab selection has no wide-tier variant")
+    if ov_window and (ov_window % tile or ov_window < window):
+        raise ValueError(f"ov_window ({ov_window}) must be a multiple of "
+                         f"the tile ({tile}) and at least the window "
+                         f"({window})")
     edges_mode = ov_mode == "edges"
     dev = xyz.device
     chunk = min(chunk, n)
     sq = sqnorm3(xyz)
     row = torch.arange(n, dtype=torch.int32, device=dev)
+    tile_start = (row // tile) * tile
     s = tile + 2 * window
+    lo = tile_start - window
     self_local = (row % tile) + window
-    nt, wt = n // tile, window // tile
+    ov_pool = min(16, cand_k) if edges_mode else min(2 * ov_slots, cand_k)
 
-    # slab selection: [nt, T, S] scores against each tile's slab
-    x0 = xyz.reshape(nt, tile, 3)
-    sq0 = sq.reshape(nt, tile)
-    m0 = mask.reshape(nt, tile)
-    tid = torch.arange(nt, device=dev)
-    slab, ssq, sm = [], [], []
-    for o in range(-wt, wt + 1):
-        slab.append(torch.roll(x0, -o, dims=0))
-        ssq.append(torch.roll(sq0, -o, dims=0))
-        ok = (tid + o >= 0) & (tid + o < nt)
-        sm.append(torch.roll(m0, -o, dims=0) & ok[:, None])
-    slab = torch.cat(slab, dim=1)
-    ssq = torch.cat(ssq, dim=1)
-    sm = torch.cat(sm, dim=1)
-    d2w = sq0[:, :, None] + ssq[:, None, :] - 2.0 * torch.einsum(
-        "ntd,nsd->nts", x0, slab)
-    d2w = torch.where(sm[:, None, :], d2w, torch.full_like(d2w, _INF))
-    ck_w = min(cand_k, s)
-    vw, lci = _topk_smallest(d2w, ck_w)
-    lci = lci.reshape(n, ck_w).to(torch.int32)
-    sel_valid = vw.reshape(n, ck_w) < _INF * 0.5
+    if sel_mode == "slab":
+        lci, sel_valid = _slab_select(xyz, sq, mask, tile, window, cand_k)
+        in_slab = sel_valid
+    else:
+        appv, ci = _global_select(xyz, sq, mask, cand_k, chunk)
+        sel_valid = appv < _INF * 0.5
+        # slab membership and the clipped slab-local index of each candidate
+        in_slab = (ci >= lo[:, None]) & (ci < (lo + s)[:, None])
+        lci = (ci - lo[:, None]).clamp(0, s - 1).to(torch.int32)
 
     # exact in-slab geometry through the slab gather (zero rows read past
-    # the block's ends are unselected candidates, masked by sel_valid)
+    # the block's ends, and out-of-slab candidates at their clipped index,
+    # are masked by in_slab and sel_valid)
     xyzm = torch.cat([xyz, mask.to(xyz.dtype)[:, None]], dim=-1)
     cand_win = gather_fwd(xyzm, lci, window, tile)             # [N, ck, 4]
     sxyz_win = cand_win[..., :3] - xyz[:, None, :]
     ed2_win = sqnorm3(sxyz_win)
-    valid_win = (cand_win[..., 3] > 0.5) & sel_valid
+    valid_win = (cand_win[..., 3] > 0.5) & in_slab & sel_valid
     is_self_win = lci == self_local[:, None]
 
-    # out-of-slab selection: the ov_pool nearest columns outside the slab
-    ov_pool = min(16, cand_k) if edges_mode else min(2 * ov_slots, cand_k)
-    lo = (row // tile) * tile - window
-    col = torch.arange(n, device=dev)[None, :]
-    oci = torch.empty((n, ov_pool), dtype=torch.long, device=dev)
-    ovv = torch.empty((n, ov_pool), dtype=xyz.dtype, device=dev)
-    for rows, d2g in _dist_chunks(xyz, sq, chunk):
-        qlo = lo[rows, None]
-        keep = mask[None, :] & ~((col >= qlo) & (col < qlo + s))
-        d2g = torch.where(keep, d2g, torch.full_like(d2g, _INF))
-        ovv[rows], oci[rows] = _topk_smallest(d2g, ov_pool)
-    opool_mask = ovv < _INF * 0.5
+    # the overflow pool: [N, ov_pool] candidates, nearest first
+    if sel_mode == "slab":
+        oci, opool_mask = _out_of_slab_select(xyz, sq, mask, lo, s, chunk,
+                                              ov_pool)
+        opool_idx = oci.to(torch.int32)
+    else:
+        # the out-of-slab candidates, ranked by their selection scores
+        ov_valid_sel = ~in_slab & sel_valid
+        no_self = torch.zeros_like(in_slab)
+        if ov_window:
+            lo2 = tile_start - ov_window
+            s2 = tile + 2 * ov_window
+            ov_valid_sel &= (ci >= lo2[:, None]) & (ci < (lo2 + s2)[:, None])
+            src = (ci - lo2[:, None]).clamp(0, s2 - 1)
+            self_pad = (row % tile) + ov_window
+        else:
+            src, self_pad = ci, row
+        (opool_idx, opool_mask, _), = _compact_bands(
+            appv, ov_valid_sel, no_self, src, None, mask, self_pad,
+            ((0.0, 1e15, ov_pool),), [ov_pool])
 
-    if ov_pool_size > 0 and not edges_mode:
-        pool_gidx, ppos = _tile_shared_pool(oci, opool_mask, tile,
+    pool_gidx = None
+    if ov_window:
+        # the wide tier's geometry through the slab gather at its width
+        ocand = gather_fwd(xyzm, opool_idx, ov_window, tile)   # [N, op, 4]
+        ov_src, ov_pad = opool_idx, self_pad
+    elif ov_pool_size > 0 and not edges_mode:
+        pool_gidx, ppos = _tile_shared_pool(opool_idx, opool_mask, tile,
                                             ov_pool_size)
-        pg = xyzm[pool_gidx.reshape(-1).long()].reshape(nt, ov_pool_size, 4)
+        pg = xyzm[pool_gidx.reshape(-1).long()].reshape(n // tile,
+                                                        ov_pool_size, 4)
         ocand = pool_take(pg, ppos, tile)                      # [N, op, 4]
         opool_mask = opool_mask & (ppos < ov_pool_size)
         ov_src, ov_pad = ppos, torch.full_like(row, ov_pool_size)
     else:
-        pool_gidx = None
-        ocand = xyzm[oci]                                      # [N, op, 4]
-        ov_src, ov_pad = oci.to(torch.int32), row
+        ocand = xyzm[opool_idx.long()]                         # [N, op, 4]
+        ov_src, ov_pad = opool_idx, row
     sxyz_ov = ocand[..., :3] - xyz[:, None, :]
     ed2_ov = sqnorm3(sxyz_ov)
     valid_ov = (ocand[..., 3] > 0.5) & opool_mask
@@ -363,7 +400,11 @@ def windowed_multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
                            sxyz_win if return_sxyz else None, mask,
                            self_local, bands, ks)
     if edges_mode:
-        edges = _edge_list(valid_ov, ed2_ov, sxyz_ov, oci, bands,
+        # the edge list holds global indices (the wide tier's made global,
+        # clipped into the block)
+        ogidx = opool_idx if not ov_window else (
+            opool_idx + (tile_start - ov_window)[:, None]).clamp(0, n - 1)
+        edges = _edge_list(valid_ov, ed2_ov, sxyz_ov, ogidx, bands,
                            edge_ratio * n)
         out = []
         for widx, wm, wsx in wcomp:
@@ -379,10 +420,75 @@ def windowed_multi_band_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
     for (widx, wm, wsx), (oidx, om, osx) in zip(wcomp, ocomp):
         wn = WindowedNeighborhood(lidx=widx, wmask=wm, ov_idx=oidx,
                                   ov_mask=om, window=window, tile=tile,
-                                  pool_idx=pool_gidx)
+                                  ov_window=ov_window, pool_idx=pool_gidx)
         out.append((wn, torch.cat([wsx, osx], dim=1)) if return_sxyz
                    else wn)
     return tuple(out)
+
+
+def _global_select(xyz: torch.Tensor, sq: torch.Tensor, mask: torch.Tensor,
+                   cand_k: int, chunk: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global selection's candidates: per query chunk the ``cand_k``
+    nearest valid points by selection score over all N columns, nearest
+    first.  Returns (scores [N, ck], global indices [N, ck] int64); an
+    unfilled slot scores ``_INF``."""
+    n = xyz.shape[0]
+    ci = torch.empty((n, cand_k), dtype=torch.long, device=xyz.device)
+    appv = torch.empty((n, cand_k), dtype=xyz.dtype, device=xyz.device)
+    for rows, d2 in _dist_chunks(xyz, sq, chunk):
+        d2 = torch.where(mask[None, :], d2, torch.full_like(d2, _INF))
+        appv[rows], ci[rows] = _topk_smallest(d2, cand_k)
+    return appv, ci
+
+
+def _slab_select(xyz: torch.Tensor, sq: torch.Tensor, mask: torch.Tensor,
+                 tile: int, window: int, cand_k: int):
+    """The slab selection's windowed candidates: each tile's
+    ``min(cand_k, S)`` nearest valid points of its slab by selection score
+    ([nt, T, S] scores).  Returns (slab-local indices [N, ck] int32,
+    validity [N, ck])."""
+    n = xyz.shape[0]
+    nt, wt = n // tile, window // tile
+    s = tile + 2 * window
+    x0 = xyz.reshape(nt, tile, 3)
+    sq0 = sq.reshape(nt, tile)
+    m0 = mask.reshape(nt, tile)
+    tid = torch.arange(nt, device=xyz.device)
+    slab, ssq, sm = [], [], []
+    for o in range(-wt, wt + 1):
+        slab.append(torch.roll(x0, -o, dims=0))
+        ssq.append(torch.roll(sq0, -o, dims=0))
+        ok = (tid + o >= 0) & (tid + o < nt)
+        sm.append(torch.roll(m0, -o, dims=0) & ok[:, None])
+    slab = torch.cat(slab, dim=1)
+    ssq = torch.cat(ssq, dim=1)
+    sm = torch.cat(sm, dim=1)
+    d2w = sq0[:, :, None] + ssq[:, None, :] - 2.0 * torch.einsum(
+        "ntd,nsd->nts", x0, slab)
+    d2w = torch.where(sm[:, None, :], d2w, torch.full_like(d2w, _INF))
+    ck_w = min(cand_k, s)
+    vw, lci = _topk_smallest(d2w, ck_w)
+    return (lci.reshape(n, ck_w).to(torch.int32),
+            vw.reshape(n, ck_w) < _INF * 0.5)
+
+
+def _out_of_slab_select(xyz: torch.Tensor, sq: torch.Tensor,
+                        mask: torch.Tensor, lo: torch.Tensor, s: int,
+                        chunk: int, ov_pool: int):
+    """The slab selection's overflow pool: per query chunk the ``ov_pool``
+    nearest valid columns outside the point's slab ``[lo, lo + s)``.
+    Returns (global indices [N, ov_pool] int64, validity)."""
+    n = xyz.shape[0]
+    col = torch.arange(n, device=xyz.device)[None, :]
+    oci = torch.empty((n, ov_pool), dtype=torch.long, device=xyz.device)
+    ovv = torch.empty((n, ov_pool), dtype=xyz.dtype, device=xyz.device)
+    for rows, d2g in _dist_chunks(xyz, sq, chunk):
+        qlo = lo[rows, None]
+        keep = mask[None, :] & ~((col >= qlo) & (col < qlo + s))
+        d2g = torch.where(keep, d2g, torch.full_like(d2g, _INF))
+        ovv[rows], oci[rows] = _topk_smallest(d2g, ov_pool)
+    return oci, ovv < _INF * 0.5
 
 
 def _edge_list(valid_ov: torch.Tensor, ed2_ov: torch.Tensor,
@@ -438,26 +544,30 @@ def annulus_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
 
 def band_neighbors_auto(xyz: torch.Tensor, mask: torch.Tensor, bands,
                         cand_k: int = 64, chunk: int = 1024,
-                        return_sxyz: bool = False, sorted: bool = False,
-                        windowed: bool = True):
-    """The JAX ``band_neighbors_auto`` (``ops/search.py:448-489``) with the
-    defaults every caller of the port uses: the windowed search (tile and
-    window 256, 8 overflow slots per band, per-point overflow slots:
-    ``ov_pool_size=0``) where the caller asserts Morton order
+                        return_sxyz: bool = False, windowed: bool = True,
+                        tile: int = 256, window: int = 256,
+                        ov_slots: int = 8, sorted: bool = False,
+                        ov_pool_size: int = 0, sel_mode: str = "slab",
+                        win_cand_k=None):
+    """The JAX ``band_neighbors_auto`` (``ops/search.py:448-487``), with its
+    defaults: the windowed search (``tile``, ``window``, ``ov_slots``,
+    ``ov_pool_size``, ``sel_mode``) where the caller asserts Morton order
     (``sorted``) and the level is tile-aligned and at least 4 tiles long,
     else the global search.  The windowed search's candidate pool is
-    ``effective_win_cand_k(None, cand_k, bands, n)``; the global search
-    keeps ``min(cand_k, n)``.  ``windowed=False`` takes the global search
-    whatever the level (the scene eval's ``--exact-search``; the JAX
-    version reads ``PCS_DISABLE_WINDOWED=1`` from the environment).  The
-    JAX version's other environment overrides are not carried over: slab
-    selection is the only windowed mode."""
+    ``effective_win_cand_k(win_cand_k, cand_k, bands, n)``; the global
+    search keeps ``min(cand_k, n)``.  ``windowed=False`` takes the global
+    search whatever the level (the scene eval's ``--exact-search``).  The
+    JAX version reads ``PCS_DISABLE_WINDOWED`` and ``PCS_SEL_MODE`` from
+    the environment; the port takes both as arguments only, and selects
+    exactly (no ``recall_target``)."""
+    sel_mode = resolve_sel_mode(sel_mode)
     n = xyz.shape[0]
-    if windowed and sorted and n % 256 == 0 and n >= 4 * 256:
+    if windowed and sorted and n % tile == 0 and n >= 4 * tile:
         return windowed_multi_band_neighbors(
-            xyz, mask, bands, tile=256, window=256,
-            cand_k=effective_win_cand_k(None, cand_k, bands, n), ov_slots=8,
-            chunk=min(chunk, n), ov_pool_size=0, return_sxyz=return_sxyz)
+            xyz, mask, bands, tile=tile, window=window,
+            cand_k=effective_win_cand_k(win_cand_k, cand_k, bands, n),
+            ov_slots=ov_slots, chunk=min(chunk, n), return_sxyz=return_sxyz,
+            ov_pool_size=ov_pool_size, sel_mode=sel_mode)
     return multi_band_neighbors(xyz, mask, bands, cand_k=min(cand_k, n),
                                 chunk=min(chunk, n),
                                 return_sxyz=return_sxyz)

@@ -35,14 +35,18 @@ class WindowedNeighborhood:
     wmask:    [N, K] bool
     ov_idx:   [N, Ko] int32 — out-of-slab neighbors.  With ``pool_idx`` set
               they are positions into the tile-shared pool (invalid slots
-              hold P, the null position); with ``pool_idx`` None they are
-              per-point global point indices (invalid slots hold the
-              point's own index).  The edge-list search
+              hold P, the null position); with ``ov_window > 0`` they are
+              slab-local in the wide tier ``[t*tile - ov_window, t*tile +
+              tile + ov_window)`` (invalid slots hold the point's own
+              position there); otherwise they are per-point global point
+              indices (invalid slots hold the point's own index).  The
+              edge-list search
               (``ov_mode="edges"``) gives Ko = 0: its out-of-slab
               neighbors travel in an ``EdgeOverflow``.
     ov_mask:  [N, Ko] bool
     pool_idx: optional [nt, P] int32 — global point indices of each tile's
               pool (invalid entries hold 0 and are never referenced).
+    ov_window: the wide tier's half-width (0: no wide tier).
     """
 
     lidx: torch.Tensor
@@ -51,6 +55,7 @@ class WindowedNeighborhood:
     ov_mask: torch.Tensor
     window: int
     tile: int
+    ov_window: int = 0
     pool_idx: Optional[torch.Tensor] = None
 
     @property
@@ -64,9 +69,9 @@ class WindowedNeighborhood:
 
     @property
     def global_idx(self) -> torch.Tensor:
-        """[N, K+Ko] global indices (slab-local and pool slots converted,
-        per-point overflow slots as they are; invalid slots hold the
-        center's own index)."""
+        """[N, K+Ko] global indices (slab-local, pool and wide-tier slots
+        converted, per-point overflow slots as they are; invalid slots hold
+        the center's own index)."""
         n = self.lidx.shape[0]
         row = torch.arange(n, dtype=torch.int32, device=self.lidx.device)
         tile_start = (row // self.tile) * self.tile
@@ -80,6 +85,9 @@ class WindowedNeighborhood:
             ko = ov.shape[-1]
             pos = ov.reshape(nt, -1).clamp(0, p - 1).long()
             ov = torch.gather(self.pool_idx, 1, pos).reshape(n, ko)
+            ov = torch.where(self.ov_mask, ov, self_i)
+        elif self.ov_window > 0 and ov.shape[-1] > 0:
+            ov = (ov + (tile_start - self.ov_window)[:, None]).clamp(0, n - 1)
             ov = torch.where(self.ov_mask, ov, self_i)
         return torch.cat([gidx, ov], dim=-1).to(torch.int32)
 

@@ -23,12 +23,14 @@ class VoxelInfo(NamedTuple):
 
 
 def voxel_coords(xyz: torch.Tensor, voxel_size: float, block_size: float,
-                 mask: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """Integer voxel coordinates on a lattice anchored at the masked min
-    corner quantized to multiples of ``voxel_size``; ``block_size`` only
-    sizes the grid, capped at the 10-bit Morton key space."""
+                 mask: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, int]:
+    """Integer voxel coordinates on a lattice anchored at the (masked,
+    with ``mask``) min corner quantized to multiples of ``voxel_size``;
+    ``block_size`` only sizes the grid, capped at the 10-bit Morton key
+    space."""
     grid = min(int(-(-block_size // voxel_size)) + 2, 1 << 10)
-    lo = masked_min_corner(xyz, mask)
+    lo = xyz.amin(dim=0) if mask is None else masked_min_corner(xyz, mask)
     lo = voxel_size * torch.floor(lo / voxel_size)
     c = torch.floor((xyz - lo[None, :]) / voxel_size).to(torch.int32)
     return c.clamp(0, grid - 1), grid

@@ -27,7 +27,7 @@ from ..models import dense as dense_lib
 from ..models import ecd, gpn, template
 from ..models.context import ContextFusionModel
 from ..models.layers import ProbsDiffusion, SegClassifier, init_glorot_
-from ..models.pointnet import (HEAD_DIM, S3DIS_ARCH,
+from ..models.pointnet import (HEAD_DIM, OV_POOL_SIZE, S3DIS_ARCH,
                                S3DIS_BASELINE20_ARCH,
                                S3DIS_CONCAT10_DECONV_ARCH, S3DIS_EMBED_ARCH,
                                SCANNET_ARCH, SEMANTIC3D_ARCH,
@@ -264,11 +264,10 @@ def _dense_encoder(feat_dim: int, arch: Arch = SEMANTIC3D_DILATE_ARCH,
                    **encoder_kw) -> PointNetSegEncoder:
     """The dense model's encoder (JAX train/model_zoo.py:353-358) on the
     pooled dense descriptor before the block's features: the JAX build
-    passes search_chunk only, so the flax defaults hold, per-point
+    passes search_chunk only, so the field defaults hold, per-point
     overflow slots and the unfactored head."""
     return PointNetSegEncoder(dense_lib.OUT_DIM + feat_dim, arch=arch,
-                              head_dim=None, ov_pool_size=0, dtype=dtype,
-                              **encoder_kw)
+                              dtype=dtype, **encoder_kw)
 
 
 class _Pipeline(NamedTuple):
@@ -320,11 +319,19 @@ def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
     converted state_dict; the template's trainable anchors start at the
     sphere k-means and ``ProbsDiffusion``'s ``alpha`` at 0 either way.
     The model lives on ``device``: the card unless the caller asks for the
-    CPU.  ``encoder_kw`` override PointNetSegEncoder settings (win_tile,
-    win_window, search_chunk, and ``ov_mode="edges"``: the shared
-    overflow edge list in place of the overflow slots, the JAX encoder's
-    ``ov_mode``), also for ``dense_semantic3d``; the other encoders take
-    ``search_chunk`` only, the one setting the JAX build passes them.  A ``_PIPELINES`` key gives its model
+    CPU.  ``encoder_kw`` override PointNetSegEncoder settings, also for
+    ``dense_semantic3d``: any field of the encoder (``search_chunk``,
+    ``cand_k``, ``win_cand_k``, ``sel_mode``, ``ov_slots``,
+    ``ov_pool_size``, ``ov_mode="edges"``, ``fast_conv``, ``remat``,
+    ``win_tile``, ``win_window``, ...).  They take the place of the JAX
+    build's environment variables, which the port does not read:
+    ``PCS_SEL_MODE`` -> ``sel_mode``, ``PCS_CAND_K`` -> ``win_cand_k``,
+    ``PCS_OV_POOL`` -> ``ov_pool_size`` (default 256 for an ``_ARCHS``
+    key, as ``PCS_OV_POOL``'s), ``PCS_REMAT=1`` -> ``remat=True``,
+    ``PCS_WIN_WINDOW`` -> ``win_window`` (and ``win_tile`` where the
+    window divides 256).  The other encoders take ``search_chunk``
+    only, the one setting the JAX build passes them.  A ``_PIPELINES``
+    key gives its model
     (``dense_semantic3d`` a ``DenseSegModel`` over the unfactored
     ``SEMANTIC3D_DILATE_ARCH`` encoder with per-point overflow slots,
     ``context_semantic3d`` a ``ContextFusionModel`` with the config's
@@ -371,10 +378,11 @@ def build_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
                                 **encoder_kw)
     else:
         arch = _ARCHS[cfg.model]()
+        kw = {"ov_pool_size": OV_POOL_SIZE, **encoder_kw}
         enc = PointNetSegEncoder(
             d.feat_dim, arch=arch,
             head_dim=None if arch.decoder == "deconv" else HEAD_DIM,
-            dtype=dtype, windowed=windowed, **encoder_kw)
+            dtype=dtype, windowed=windowed, **kw)
     common = (enc, d.num_classes, d.voxel_sizes, d.caps, d.block_size)
     if cfg.model in _CLASSIFIERS:
         model = ClassificationModel(*common, dtype=dtype)

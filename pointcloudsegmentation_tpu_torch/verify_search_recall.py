@@ -8,25 +8,28 @@ the recall of the (idx, mask) pairs is reported:
 
 - ``band_recall``: the global search, ``ops.search.multi_band_neighbors``
   (one candidate pool of ``cand_k`` per point), held to 0.99;
-- ``windowed_band_recall``: the production windowed search, the Morton
-  sort and ``ops.search.windowed_multi_band_neighbors`` (slab selection,
-  tile 256, 8 overflow slots per band, chunk 2048, a tile-shared overflow
-  pool of P, or per-point overflow slots with P = 0), held to 0.94.
+- ``windowed_band_recall``: the windowed search, the Morton sort and
+  ``ops.search.windowed_multi_band_neighbors`` (slab or global selection
+  over ``cand_k`` candidates, tile 256, 8 overflow slots per band, chunk
+  2048, a tile-shared overflow pool of P, or per-point overflow slots with
+  P = 0), held to 0.94.
 
     python -m pointcloudsegmentation_tpu_torch.verify_search_recall
 
 runs the global contract and the production windowed configuration
 (``slab:32:256:256``) on seeds 0 and 1 and prints PASS or FAIL;
-``--grid`` sweeps sel_mode x cand_k at pool 384, and targeted
-``sel_mode:cand_k:pool[:window]`` triples (e.g. ``slab:32:256``) run only
-those windowed configurations.  The port's windowed search has slab
-selection only, so a ``global`` triple, and ``--grid`` (whose first rows
-are ``global``), exit with a message saying so.  It runs on the card
-unless ``--device cpu`` is given.
+``--grid`` adds the selection study, sel_mode (global, slab) x cand_k
+(64, 48, 32) at pool 384, and targeted ``sel_mode:cand_k:pool[:window]``
+triples (e.g. ``global:64:256``) run only those windowed configurations.
+It runs on the card unless ``--device cpu`` is given.  The port selects
+exactly, so its recall is that of the JAX search on the CPU, where
+``approx_max_k`` is exact; the JAX script's TPU rows include the
+approximate selection's losses.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -50,19 +53,16 @@ def room_cloud(n: int, seed: int) -> np.ndarray:
     return xyz
 
 
-def exact_recall(xyz: np.ndarray, found: Sequence[Tuple[np.ndarray,
-                                                        np.ndarray]]
-                 ) -> List[Tuple[Tuple[float, float, int], float]]:
-    """Per band, the share of the exact in-band k nearest (float64
-    distances, no pool truncation, ties to the lower index) that the
-    search's valid slots hold, each point's slots counted as a set.
-    ``found``: (idx [n, K], mask [n, K]) per band, global indices into
-    ``xyz``.  The JAX script's per-point loop, on whole arrays."""
-    n = len(xyz)
-    x = xyz.astype(np.float64)
+@functools.lru_cache(maxsize=4)
+def _exact_want(cloud: bytes, n: int) -> List[np.ndarray]:
+    """Per band, the exact in-band k nearest of every point of the [n, 3]
+    float32 ``cloud`` (float64 distances, no pool truncation, ties to the
+    lower index), as sorted ``row * n + col`` keys.  Cached: a grid holds
+    every configuration of a seed against the same sorted cloud."""
+    x = np.frombuffer(cloud, np.float32).reshape(n, 3).astype(np.float64)
     d2 = sum((x[:, None, c] - x[None, :, c]) ** 2 for c in range(3))
-    out = []
-    for (mn, mx, k), (ai, am) in zip(BANDS, found):
+    wants = []
+    for mn, mx, k in BANDS:
         band = (d2 <= mx * mx) & (d2 >= mn * mn)
         if mn > 0:
             np.fill_diagonal(band, False)
@@ -71,7 +71,21 @@ def exact_recall(xyz: np.ndarray, found: Sequence[Tuple[np.ndarray,
         rows, cols = rows[order], cols[order]
         first = np.searchsorted(rows, np.arange(n))
         keep = np.arange(len(rows)) - first[rows] < k
-        want = rows[keep].astype(np.int64) * n + cols[keep]
+        wants.append(rows[keep].astype(np.int64) * n + cols[keep])
+    return wants
+
+
+def exact_recall(xyz: np.ndarray, found: Sequence[Tuple[np.ndarray,
+                                                        np.ndarray]]
+                 ) -> List[Tuple[Tuple[float, float, int], float]]:
+    """Per band, the share of the exact in-band k nearest (``_exact_want``)
+    that the search's valid slots hold, each point's slots counted as a
+    set.  ``found``: (idx [n, K], mask [n, K]) per band, global indices
+    into ``xyz``.  The JAX script's per-point loop, on whole arrays."""
+    n = len(xyz)
+    out = []
+    wants = _exact_want(np.ascontiguousarray(xyz, np.float32).tobytes(), n)
+    for (mn, mx, k), want, (ai, am) in zip(BANDS, wants, found):
         got = np.unique(np.nonzero(am)[0].astype(np.int64) * n
                         + ai[am].astype(np.int64))
         inter = int(np.isin(got, want, assume_unique=True).sum())
@@ -92,19 +106,16 @@ def band_recall(n: int = 8192, cand_k: int = 96, seed: int = 0,
 
 
 def windowed_band_recall(n: int = 8192, cand_k: int = 64, seed: int = 0,
-                         sel_mode: str = "slab", ov_pool_size: int = 0,
+                         sel_mode: str = "global", ov_pool_size: int = 0,
                          window: int = 256, device="cuda"):
     """Recall of the windowed search per band, on the Morton-sorted
     cloud (global indices of the sorted order)."""
-    if sel_mode != "slab":
-        raise ValueError(f"sel_mode {sel_mode!r}: the port's windowed "
-                         "search has slab selection only")
     x = torch.from_numpy(room_cloud(n, seed)).to(device)
     xs, ms, _ = morton.sort_block(
         x, torch.ones(n, dtype=torch.bool, device=device), 0.0375, 3.0)
     res = search.windowed_multi_band_neighbors(
         xs, ms, BANDS, tile=256, window=window, cand_k=cand_k, ov_slots=8,
-        chunk=2048, ov_pool_size=ov_pool_size)
+        chunk=2048, sel_mode=sel_mode, ov_pool_size=ov_pool_size)
     return exact_recall(xs.cpu().numpy(),
                         [(wn.global_idx.cpu().numpy(),
                           wn.mask.cpu().numpy()) for wn in res])
@@ -112,7 +123,7 @@ def windowed_band_recall(n: int = 8192, cand_k: int = 64, seed: int = 0,
 
 def _configs(args) -> List[Tuple[str, int, int, int]]:
     """The windowed configurations the arguments ask for; exits on a
-    configuration the port cannot run."""
+    malformed one."""
     if args.grid and args.configs:
         raise SystemExit("--grid cannot be combined with targeted "
                          "sel_mode:cand_k:pool configs — pick one")
@@ -139,12 +150,6 @@ def _configs(args) -> List[Tuple[str, int, int, int]]:
             configs.append((m, ck, pool, win))
     else:
         configs = [PRODUCTION]
-    unported = [":".join(map(str, c)) for c in configs if c[0] != "slab"]
-    if unported:
-        raise SystemExit(
-            f"sel_mode 'global' is not ported (the port's windowed search "
-            f"has slab selection only): cannot run {', '.join(unported)}; "
-            "pass slab triples instead")
     return configs
 
 

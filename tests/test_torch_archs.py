@@ -215,7 +215,7 @@ def test_unfactored_concat_decoder():
 
     tenc = tpointnet.PointNetSegEncoder(
         12, arch=_tiny_arch(tpointnet, 0.3), head_dim=None, win_tile=64,
-        win_window=64, search_chunk=512)
+        win_window=64, ov_pool_size=256, search_chunk=512)
     load_flax_params(tenc, params)
     assert tenc.out_width == lf.shape[-1]
     thead = load_flax_params(tl.SegClassifier(

@@ -82,7 +82,8 @@ def test_windowed_search_per_point_overflow(bands, seed, n_pad):
         chunk=1024, return_sxyz=True, ov_pool_size=0, sel_mode="slab")
     tres = tsearch.windowed_multi_band_neighbors(
         _t(xyz), _t(mask), bands, tile=256, window=256, cand_k=ck,
-        ov_slots=8, chunk=1024, ov_pool_size=0, return_sxyz=True)
+        ov_slots=8, chunk=1024, ov_pool_size=0, return_sxyz=True,
+        sel_mode="slab")
     _check_windowed(jres, tres)
     # invalid overflow slots hold the point's own index
     for tn, _ in tres:
@@ -126,7 +127,8 @@ def neighborhoods():
         sel_mode="slab")
     (tn, _), = tsearch.windowed_multi_band_neighbors(
         _t(xyz), _t(mask), ECD_BANDS, tile=256, window=256, cand_k=CAND_K,
-        ov_slots=8, chunk=1024, ov_pool_size=0, return_sxyz=True)
+        ov_slots=8, chunk=1024, ov_pool_size=0, return_sxyz=True,
+        sel_mode="slab")
     jplain, tplain = jn.to_neighborhood(), tn.to_neighborhood()
     assert isinstance(tplain, TNbr)
     feats = np.random.RandomState(5).randn(N, 12).astype(np.float32)

@@ -61,7 +61,7 @@ def _search(xyz, mask, bands, edge_ratio, return_sxyz=True):
     jres = jsearch.windowed_multi_band_neighbors(
         jnp.asarray(xyz), jnp.asarray(mask), bands, sel_mode="slab", **kw)
     tres = tsearch.windowed_multi_band_neighbors(
-        _t(xyz), _t(mask), bands, chunk=2048, **kw)
+        _t(xyz), _t(mask), bands, chunk=2048, sel_mode="slab", **kw)
     return jres, tres
 
 

@@ -73,7 +73,7 @@ def test_pointnet_pool_mlp():
 @pytest.mark.parametrize("pfeat_dim", [12, 40])
 def test_seg_classifier(pfeat_dim):
     got, want = _run(jl.SegClassifier(13, premixed=True),
-                     tl.SegClassifier(13, 512, pfeat_dim),
+                     tl.SegClassifier(13, 512, pfeat_dim, premixed=True),
                      _x(30, 512), _x(30, pfeat_dim, seed=1))
     np.testing.assert_allclose(got, want, **TOL)
 
@@ -85,11 +85,11 @@ def test_seg_classifier_unfactored():
         13, 300, 40, premixed=False), _x(30, 300), _x(30, 40, seed=1))
     np.testing.assert_allclose(got, want, **TOL)
     with pytest.raises(ValueError):
-        tl.SegClassifier(13, 300, 40)
+        tl.SegClassifier(13, 300, 40, premixed=True)
 
 
 def test_seg_classifier_dropout_uses_generator():
-    m = tl.SegClassifier(13, 512, 12)
+    m = tl.SegClassifier(13, 512, 12, premixed=True)
     tl.init_glorot_(m, torch.Generator().manual_seed(0))
     x, p = torch.randn(30, 512), torch.randn(30, 12)
     a = m(x, p, True, torch.Generator().manual_seed(1))

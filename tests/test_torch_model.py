@@ -219,8 +219,8 @@ def test_sxyz_divided_by_conv_radius_when_stage_rescale_is_one():
         lambda: jenc.init(jax.random.PRNGKey(0), jpyr, feats)), seed=4)
     z, lf = jenc.apply(params, jpyr, feats)
     tenc = tpointnet.PointNetSegEncoder(
-        12, arch=_tiny_arch(tpointnet, 1.0), win_tile=64, win_window=64,
-        search_chunk=512)
+        12, arch=_tiny_arch(tpointnet, 1.0), head_dim=512, win_tile=64,
+        win_window=64, ov_pool_size=256, search_chunk=512)
     load_flax_params(tenc, params)
     with torch.no_grad():
         tz, tlf = tenc(tpyr, _t(feats))

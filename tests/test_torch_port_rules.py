@@ -116,6 +116,133 @@ def test_toy_signatures_keep_the_jax_defaults(name):
     assert defaults(getattr(ttoy, name)) == defaults(getattr(jtoy, name))
 
 
+# The port's modules with a JAX counterpart elsewhere than at the same
+# path: the tools beside the JAX package's scripts, and the config module
+def _counterparts():
+    """(port module, JAX module) names of every module both sides have."""
+    import pkgutil
+
+    import pointcloudsegmentation_tpu_torch as port
+
+    pairs = []
+    for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+        rel = m.name[len(port.__name__) + 1:]
+        jax_path = os.path.join(ROOT, "pointcloudsegmentation_tpu",
+                                *rel.split("."))
+        if rel == "config":
+            pairs.append((m.name, "pointcloudsegmentation_tpu.train.config"))
+        elif os.path.exists(jax_path + ".py") or os.path.isdir(jax_path):
+            pairs.append((m.name, "pointcloudsegmentation_tpu." + rel))
+        if os.path.exists(os.path.join(ROOT, "scripts", rel + ".py")):
+            pairs.append((m.name, rel))   # imported from scripts/
+    return pairs
+
+
+# Defaults the port keeps apart from JAX's on purpose: (module, function,
+# parameter) -> the reason, in one line
+DEFAULTS_KEPT_APART = {
+    ("pointcloudsegmentation_tpu_torch.utils.logging", "get_logger",
+     "name"): "the port logs under its own root, pcs_torch, so a process "
+              "that imports both packages keeps their handlers apart",
+}
+
+
+def _default(value):
+    """A default as compared across the frameworks: a function by its name
+    (the framework's own relu on either side), anything else by repr
+    (dataclass specs of the same fields print alike)."""
+    if callable(value) and not inspect.isclass(value) \
+            and hasattr(value, "__name__"):
+        return ("function", value.__name__)
+    return repr(value)
+
+
+def _import(name):
+    """Import module ``name`` (a JAX script by its bare name), leaving the
+    environment as it was: a script may set variables as it loads
+    (scripts/halo_study.py sets PCS_DISABLE_WINDOWED), which must not reach
+    the tests that follow."""
+    import importlib
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    saved = dict(os.environ)
+    try:
+        return importlib.import_module(name)
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+def _diverging_defaults(port_name, jax_name):
+    """(function, parameter, JAX default, port default) of every public
+    function and class of ``port_name`` whose JAX counterpart of the same
+    name in ``jax_name`` has a parameter of the same name with another
+    default (a parameter one side requires counts as differing)."""
+    pm, jm = _import(port_name), _import(jax_name)
+    found = []
+    for name, pobj in sorted(vars(pm).items()):
+        jobj = getattr(jm, name, None)
+        if (name.startswith("_") or jobj is None
+                or getattr(pobj, "__module__", None) != port_name
+                or getattr(jobj, "__module__", None) != jax_name):
+            continue
+        try:
+            psig, jsig = inspect.signature(pobj), inspect.signature(jobj)
+        except (TypeError, ValueError):
+            continue
+        for p in psig.parameters.values():
+            q = jsig.parameters.get(p.name)
+            if q is not None and _default(p.default) != _default(q.default):
+                found.append((name, p.name, q.default, p.default))
+    return found
+
+
+@pytest.mark.parametrize("port_name,jax_name", _counterparts(),
+                         ids=lambda v: v)
+def test_signatures_keep_the_jax_defaults(port_name, jax_name):
+    """A call that leaves an argument out gets what JAX gives: for every
+    public function and class that both packages have under the same module
+    path (or the port's tool and its script), each parameter of the same
+    name has the same default, except where ``DEFAULTS_KEPT_APART`` gives
+    the reason."""
+    found = [f for f in _diverging_defaults(port_name, jax_name)
+             if (port_name,) + f[:2] not in DEFAULTS_KEPT_APART]
+    assert not found, found
+
+
+# the parameters a port function may lack: approx_max_k's tuning (the port
+# selects exactly) and a flax module's own fields
+PARAMS_LEFT_OUT = {"recall_target", "use_approx", "parent", "name"}
+
+
+@pytest.mark.parametrize("port_name,jax_name,fn", [
+    ("pointcloudsegmentation_tpu_torch.ops.search",
+     "pointcloudsegmentation_tpu.ops.search", "windowed_multi_band_neighbors"),
+    ("pointcloudsegmentation_tpu_torch.ops.search",
+     "pointcloudsegmentation_tpu.ops.search", "band_neighbors_auto"),
+    ("pointcloudsegmentation_tpu_torch.models.pointnet",
+     "pointcloudsegmentation_tpu.models.pointnet", "PointNetSegEncoder"),
+    ("pointcloudsegmentation_tpu_torch.verify_search_recall",
+     "verify_search_recall", "windowed_band_recall")])
+def test_search_entry_points_take_every_jax_parameter(port_name, jax_name,
+                                                      fn):
+    """The windowed search, its dispatch, the encoder and the recall tool
+    take every parameter of their JAX counterparts but the approximate
+    selection's (their defaults are held by the test above)."""
+    jobj, pobj = getattr(_import(jax_name), fn), getattr(_import(port_name),
+                                                          fn)
+    want = set(inspect.signature(jobj).parameters) - PARAMS_LEFT_OUT
+    assert want <= set(inspect.signature(pobj).parameters)
+
+
+def test_defaults_kept_apart_still_differ():
+    """Every entry of the allow-list names a default that still differs."""
+    for (port_name, fn, param), why in DEFAULTS_KEPT_APART.items():
+        jax_name = dict(_counterparts())[port_name]
+        assert why and (fn, param) in [
+            f[:2] for f in _diverging_defaults(port_name, jax_name)]
+
+
 @pytest.mark.parametrize("n", [50, 130])   # padded, subsampled to 100 points
 def test_batching_copy_gives_the_jax_arrays(n):
     rng = np.random.RandomState(n)

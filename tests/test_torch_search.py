@@ -56,7 +56,7 @@ def test_windowed_multi_band_neighbors(seed, dup, n_pad):
     tres = tsearch.windowed_multi_band_neighbors(
         torch.from_numpy(xyz), torch.from_numpy(mask), BANDS, tile=tile,
         window=tile, cand_k=ck, ov_slots=8, chunk=1024, ov_pool_size=pool,
-        return_sxyz=True)
+        return_sxyz=True, sel_mode="slab")
     _check_bands(jres, tres, windowed=True)
     # the pool is reached: some overflow slot is valid
     assert any(np.array(t.ov_mask).any() for t, _ in tres)

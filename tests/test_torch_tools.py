@@ -166,23 +166,16 @@ def test_production_windowed_recall_equals_jax():
     assert all(r >= verify_search_recall.WINDOWED_MIN for _, r in got)
 
 
+# ids as they were when the tool also refused global selection
 @pytest.mark.parametrize("argv,match", [
-    (["global:32:256"], "not ported"),
-    (["slab:32:256", "global:64:384:256"], "not ported"),
-    (["--grid"], "not ported"),
-    (["--grid", "slab:32:256"], "cannot be combined"),
-    (["slab:32"], "bad config"),
-    (["edges:32:256"], "bad sel_mode"),
+    pytest.param(["--grid", "slab:32:256"], "cannot be combined",
+                 id="argv3-cannot be combined"),
+    pytest.param(["slab:32"], "bad config", id="argv4-bad config"),
+    pytest.param(["edges:32:256"], "bad sel_mode", id="argv5-bad sel_mode"),
 ])
 def test_search_recall_refuses_what_the_port_lacks(argv, match):
     with pytest.raises(SystemExit, match=match):
         verify_search_recall.main(argv + ["--device", "cpu"])
-
-
-def test_windowed_recall_refuses_global_selection():
-    with pytest.raises(ValueError, match="slab selection only"):
-        verify_search_recall.windowed_band_recall(n=1024, sel_mode="global",
-                                                  device="cpu")
 
 
 # -- eval_parity

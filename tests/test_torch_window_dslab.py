@@ -81,6 +81,39 @@ def test_reference_matches_pallas_dslab(f, k, dtype):
     assert wg.dslab_bwd.launches == before
 
 
+@pytest.mark.parametrize("f,k,dtype", [(64, 8, "bfloat16"),
+                                       (12, 8, "float32")])
+def test_reference_matches_pallas_dslab_wide_window(f, k, dtype):
+    """The wide overflow tier's backward: window 512 over tiles of 256 (a
+    slab of 1280 rows, more rows than the level-0 slab's 768), its map
+    against numpy's stable argsort and its sums against the Pallas
+    kernel."""
+    n, t, w = 1024, 256, 512
+    s = t + 2 * w
+    rng = np.random.RandomState(f + k)
+    lidx = rng.randint(0, s, (n, k)).astype(np.int32)
+    lidx[:, 0] = 0
+    lidx[:, 1] = s - 1
+    lidx[::3, 2] = 700                       # one row read many times
+    lidx[::5, 3] = -1                        # outside the slab: adds nothing
+    lidx[::7, 3] = s
+    g = rng.randn(n, k, f).astype(np.float32)
+    jg = jnp.asarray(g).astype(getattr(jnp, dtype))
+    want = np.array(pallas_dslab(jg, jnp.asarray(lidx), w, t)
+                    .astype(jnp.float32))
+    tg = torch.from_numpy(g).to(getattr(torch, dtype))
+    tl = torch.from_numpy(lidx)
+    got = wg.dslab_bwd_reference(tg, tl, w, t)
+    assert got.shape == (n // t, s, f)
+    mag = wg.dslab_bwd_reference(tg.float().abs(), tl, w, t)
+    assert_sums_close(got.float().numpy(), want, mag.numpy())
+    start, order = wg.dslab_map_reference(tl, w, t)
+    nstart, norders = _numpy_map(lidx, w, t)
+    np.testing.assert_array_equal(start.numpy(), nstart)
+    for i, no in enumerate(norders):
+        np.testing.assert_array_equal(order[i, :len(no)].numpy(), no)
+
+
 def _numpy_map(lidx, window, tile):
     """(start, order) from numpy's stable argsort of each tile's slots by
     slab row, indices outside [0, S) dropped: the in-range prefix of the

@@ -52,6 +52,29 @@ def test_reference_matches_pallas_gather(f, k, dtype):
     assert wg.gather_fwd.launches == before
 
 
+@pytest.mark.parametrize("f,k,dtype", [(64, 8, "bfloat16"),
+                                       (4, 16, "float32")])
+def test_reference_matches_pallas_gather_wide_window(f, k, dtype):
+    """The wide overflow tier's geometry: window 512 over tiles of 256 (a
+    slab of 1280 rows), its 8 slots of bf16 features and the search's
+    16-candidate float32 xyzm read."""
+    n, t, w = 1024, 256, 512
+    s = t + 2 * w
+    rng = np.random.RandomState(f * k)
+    feats = rng.randn(n, f).astype(np.float32)
+    lidx = rng.randint(0, s, (n, k)).astype(np.int32)
+    lidx[:, 0] = 0          # rows before the block's start
+    lidx[:, 1] = s - 1      # ... and past its end
+    jf = jnp.asarray(feats).astype(getattr(jnp, dtype))
+    want = np.array(pallas_gather(jf, jnp.asarray(lidx), w, t)
+                    .astype(jnp.float32))
+    got = wg.gather_fwd_reference(
+        torch.from_numpy(feats).to(getattr(torch, dtype)),
+        torch.from_numpy(lidx), w, t)
+    assert got.shape == (n, k, f)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
 def test_gather_fwd_rejects_bad_input():
     f = torch.zeros(N, 8)
     li = torch.zeros(N, 4, dtype=torch.int32)
