@@ -35,8 +35,8 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    blocks of 8192 points: the backward kernels' determinism one op at a
    time, launch counts per block of both kernels, a finite loss at every
    step, a falling loss over 20 steps on one batch, a bitwise-repeatable
-   step, the non-finite guard, float32 gradient parity card vs CPU (cosine),
-   and train points/s with peak memory;
+   step, the non-finite guard and float32 gradient parity card vs CPU
+   (cosine); phase 21 times the flagship's steps;
 8. fused conv: the fused-conv bench (``bench_fused_conv``) at levels 0 and
    1 at full width: its timed arms and its fused-vs-unfused cross-check
    (within 2^-6 of the largest output), exactly one fused window-conv
@@ -243,12 +243,12 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    ``ov_mode="edges"`` (full width and depth, bf16 compute, seeded
    weights) trains on phase 7's batches: one counted step of 4 x 8192
    points (16 K2 and 13 K3 a block, as in slots mode: the edge rows are
-   read by plain indexing), 3 timed steps beside phase 7's slots-mode
-   step, 2 steps under ``torch.profiler`` (PyTorch's index backward's
-   share of kernel time, the top kernels), one step twice from one state
-   bitwise equal (the edge reads'
-   backward is PyTorch's sort-based index accumulation, no float
-   atomics); on one float32 block, every windowed level's search on the
+   read by plain indexing), 3 timed steps beside the bench's slots-mode
+   step (phase 21, search chunk 2048), 2 steps under ``torch.profiler``
+   (PyTorch's index backward's share of kernel time, the top kernels),
+   one step twice from one state bitwise equal (the edge reads' backward
+   is PyTorch's sort-based index accumulation, no float atomics); on one
+   float32 block, every windowed level's search on the
    card and on the CPU from the same pyramid: the valid edge rows
    ((center, nbr) pairs) and each band's windowed slot rows equal on at
    least 0.999, sxyz and d2 of the shared rows within 1e-6, and each
@@ -272,8 +272,9 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    seeded weights) trains on phase 7's batches: one counted step of 4 x
    8192 points and 3 timed ones, none of which launches K2 or K3 (the
    exact arm gathers by plain indexing; a launch would mean the windowed
-   path leaked in), beside phase 7's windowed step (step s, train
-   points/s, peak memory); one step twice from one state bitwise equal;
+   path leaked in), beside the bench's windowed step (phase 21, search
+   chunk 2048: step s, train points/s, peak memory); one step twice from
+   one state bitwise equal;
    on one float32 block, card vs CPU, every level's exact search slot for
    slot (at least 0.999 of the valid slots equal), logits argmax on at
    least 0.999 of the valid points and the flat gradient's cosine at
@@ -312,6 +313,18 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    (e) ``fast_conv=False`` (the plain ``PointNetConv`` for every concat
    conv): a served block, one step beside the fast conv's (time, peak
    memory), float32 card vs CPU as in (c).
+21. the flagship bench (``python -m pointcloudsegmentation_tpu_torch.bench``,
+   its ``main`` in-process at its defaults: 3 warm-up steps and 3 chains
+   of 20 of 4 x 8192 points, full width, search chunk 2048, then one warm
+   and 3 timed sweeps of its 8-block eval scene): the final line's seven
+   keys of the repo-root ``bench.py``, each value finite and positive,
+   ``mfu`` below 1 and at 4 significant figures; ``flops_per_step``
+   (``Trainer.step_flops`` on the card) equal to the same count taken on
+   the CPU for the same config and batch; K2 and K3 launched as every
+   step's blocks, every sweep's blocks and the count's one training block
+   give them.  It runs after phase 8: phases 18 and 19 set their steps
+   beside its train step and peak memory, and its train and eval points/s
+   and peak memory are the ones the summary line gives.
 
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
@@ -682,30 +695,22 @@ def phase_kernel(model, cfg, card):
 
 
 def make_blocks(device):
+    """The bench's eval scene (``bench.eval_scene``, seed 0): 8 synthetic
+    rooms of N_POINTS points, their arrays on ``device``, and the dense
+    cloud 4 times as dense near the sampled surfaces."""
     import numpy as np
     import torch
 
-    from pointcloudsegmentation_tpu_torch.data import toy
+    from pointcloudsegmentation_tpu_torch.bench import eval_scene
 
-    rng = np.random.RandomState(0)
-    blocks = []
-    for i in range(N_BLOCKS):
-        b = toy.synthetic_room_block(rng, n=N_POINTS, num_classes=13,
-                                     feat_dim=12)
-        blocks.append({
-            "xyz": torch.from_numpy(b["xyz"]).to(device),
-            "feats": torch.from_numpy(b["feats"]).to(device),
-            "mask": torch.ones(N_POINTS, dtype=torch.bool, device=device),
-            "block_min": np.array([3.0 * i, 0, 0], np.float32)})
-    # the dense cloud: 4x the sampled density near the sampled surfaces
-    dense = np.concatenate(
-        [np.repeat(b["xyz"].cpu().numpy(), 4, axis=0)
-         + rng.uniform(-0.05, 0.05, (4 * N_POINTS, 3)).astype(np.float32)
-         + b["block_min"][None, :] for b in blocks], axis=0)
-    return blocks, dense.astype(np.float32)
+    blocks, dense = eval_scene(N_POINTS, np.random.RandomState(0))
+    check(len(blocks) == N_BLOCKS, f"{len(blocks)} eval blocks")
+    return [dict(b, **{k: torch.from_numpy(b[k]).to(device)
+                       for k in ("xyz", "feats", "mask")})
+            for b in blocks], dense
 
 
-def phase_serve(model, cfg, card):
+def phase_serve(model, cfg):
     import numpy as np
     import torch
 
@@ -736,20 +741,7 @@ def phase_serve(model, cfg, card):
     check(ddev <= PROB_SUM_TOL, f"dense probs rows sum to 1 +- {ddev}")
     log(f"[serve] probs {probs.shape} finite, rows sum to 1 +- {dev:.2e}; "
         f"dense {dprobs.shape} rows sum to 1 +- {ddev:.2e}")
-
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sxyz, probs = eval_scene_probs(model, blocks)
-        interpolate_to_dense(sxyz, probs, dense, k=6)
-        times.append(time.perf_counter() - t0)
-    times.sort()
-    pps = len(dense) / times[1]
-    log(f"[serve] sweeps (s): {', '.join(f'{t:.4f}' for t in times)}; "
-        f"median {len(dense)} dense points / {times[1]:.4f} s = "
-        f"{pps:.1f} dense points/s [{card}]")
-    return launches, pps
+    return launches
 
 
 def phase_parity(serve, cfg, block, card):
@@ -1082,25 +1074,6 @@ def phase_train(cfg, card):
     log(f"[train] NaN feature: skipped={int(mc['skipped'])}, params, mu, nu "
         f"and count unchanged, step {a.step} -> {c.step}")
 
-    # throughput: median of 3 chains of 10 steps, one sync per chain
-    valid = int(batches[0]["mask"].sum())
-    torch.cuda.reset_peak_memory_stats()
-    chains = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(10):
-            state, m = trainer.train_step(state, batches[i % 2])
-        float(m["loss"])
-        chains.append((time.perf_counter() - t0) / 10)
-    chains.sort()
-    pps = valid / chains[1]
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[train] step s (3 chains of 10): "
-        f"{', '.join(f'{t:.4f}' for t in chains)}; median: {valid} valid "
-        f"points / {chains[1]:.4f} s = {pps:.1f} train points/s; peak "
-        f"memory {peak:.3f} GiB [{card}]")
-
     # float32 gradient parity, card vs CPU, one block, train=False loss
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     block = {k: v[:1].cpu() for k, v in batches[0].items()}
@@ -1121,7 +1094,7 @@ def phase_train(cfg, card):
         f", relative L2 {rel:.3e}, loss {grads['cuda'][0]:.6f} vs "
         f"{grads['cpu'][0]:.6f} [{card}]")
     check(cos >= GRAD_COSINE_MIN, f"gradient cosine {cos}")
-    return launches, pps, peak
+    return launches
 
 
 def k1_flops(lidx, dims):
@@ -3932,7 +3905,7 @@ def p18_searches(enc, pyr, card):
 def p18_flagship(cfg, card, slots):
     """18 (a): the flagship with ``ov_mode="edges"`` at full width and
     depth (bf16 compute, seeded weights): a counted Trainer step of 4 toy
-    blocks of 8192 points, EDGE_TIMED_STEPS timed ones beside phase 7's
+    blocks of 8192 points, EDGE_TIMED_STEPS timed ones beside the bench's
     slots-mode step, P18_PROFILED_STEPS under ``torch.profiler`` (the
     index backward's share of kernel time, the top kernels), one step
     twice from one state bitwise equal; on one
@@ -3976,7 +3949,7 @@ def p18_flagship(cfg, card, slots):
     slots_pps, slots_peak = slots
     log(f"[edges] first step loss {loss:.5f} in {first:.2f} s (set-up "
         f"included); {step_s:.4f} s a step, {pps:.1f} train points/s, peak "
-        f"{peak:.3f} GiB; phase 7's slots step {valid / slots_pps:.4f} s, "
+        f"{peak:.3f} GiB; the bench's slots step {valid / slots_pps:.4f} s, "
         f"{slots_pps:.1f} train points/s, peak {slots_peak:.3f} GiB "
         f"[{card}]")
 
@@ -4277,7 +4250,7 @@ def p18_helpers(block, cfg, card):
 def phase_edges(card, slots):
     """18: the encoder's shared overflow edge list, the anchored-conv tail,
     the head variants and the geometry ops on the card (see the
-    docstring).  ``slots`` is phase 7's (train points/s, peak GiB)."""
+    docstring).  ``slots`` is the bench's (train points/s, peak GiB)."""
     import dataclasses
 
     from pointcloudsegmentation_tpu_torch.config import s3dis_config
@@ -4300,7 +4273,7 @@ def p19_exact_step(cfg, card, slots):
     """19 (a): the flagship trained with the exact global search
     (``Trainer(windowed=False)``, full width and depth, bf16 compute,
     seeded weights) on phase 7's batches: a counted step and
-    P19_TIMED_STEPS timed ones with no K2 or K3 launch, beside phase 7's
+    P19_TIMED_STEPS timed ones with no K2 or K3 launch, beside the bench's
     windowed step; one step twice from one state bitwise equal; on one
     float32 block, card vs CPU: every level's exact search slot for slot,
     logits argmax and the flat gradient's cosine."""
@@ -4337,7 +4310,7 @@ def p19_exact_step(cfg, card, slots):
     slots_pps, slots_peak = slots
     log(f"[exact] first step loss {loss:.5f} in {first:.2f} s (set-up "
         f"included); {step_s:.4f} s a step, {pps:.1f} train points/s, peak "
-        f"{peak:.3f} GiB; phase 7's windowed step {valid / slots_pps:.4f} "
+        f"{peak:.3f} GiB; the bench's windowed step {valid / slots_pps:.4f} "
         f"s, {slots_pps:.1f} train points/s, peak {slots_peak:.3f} GiB "
         f"[{card}]")
 
@@ -4490,8 +4463,8 @@ def p19_parity_ab(card):
 
 def phase_exact(card, slots):
     """19: the exact-search training arm and the windowed-vs-exact A/B on
-    the card (see the docstring).  ``slots`` is phase 7's (train points/s,
-    peak GiB)."""
+    the card (see the docstring).  ``slots`` is the bench's (train
+    points/s, peak GiB)."""
     from pointcloudsegmentation_tpu_torch.config import s3dis_config
 
     t0 = time.perf_counter()
@@ -4925,6 +4898,62 @@ def phase_modes(card):
     return total, k2, k3
 
 
+def phase_bench(card):
+    """21: the port's bench (``python -m
+    pointcloudsegmentation_tpu_torch.bench``) in-process at its defaults
+    (see the docstring).  Returns (its launches, its final line's object,
+    its peak device memory in GiB)."""
+    import math
+
+    import torch
+
+    from pointcloudsegmentation_tpu_torch import bench
+    from pointcloudsegmentation_tpu_torch.config import s3dis_config
+    from pointcloudsegmentation_tpu_torch.data import toy
+    from pointcloudsegmentation_tpu_torch.train.loop import Trainer
+
+    args = bench.parse_args([])
+    cfg = s3dis_config(data_num_points=args.points, data_caps=bench.CAPS,
+                       data_feat_dim=bench.FEAT_DIM)
+    fwd, step = per_block(cfg)
+    steps = bench.WARMUP + bench.CHAINS * bench.ITERS
+    sweeps = 1 + bench.SWEEPS
+    # every step's blocks, every sweep's blocks, and step_flops's one block
+    expect = plus(plus(times(step, steps * args.batch),
+                       times(fwd, sweeps * bench.EVAL_BLOCKS)), step)
+    log(f"[bench] {steps} steps of {args.batch} blocks, {sweeps} sweeps of "
+        f"{bench.EVAL_BLOCKS} blocks and step_flops's one block: expected "
+        f"launches {expect}")
+    out, counts, _ = run_path("bench", lambda: bench.main([]), expect)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30   # reset by main
+    numbers = ("value", "vs_baseline", "mfu", "flops_per_step",
+               "eval_points_per_sec_per_chip")
+    check(list(out) == ["metric", "value", "unit", *numbers[1:]],
+          f"bench keys {list(out)}")
+    check(out["metric"] == "s3dis_train_points_per_sec_per_chip"
+          and out["unit"] == "points/s", f"bench metric {out}")
+    for k in numbers:
+        check(math.isfinite(out[k]) and out[k] > 0, f"bench {k} {out[k]}")
+    check(out["mfu"] < 1, f"bench mfu {out['mfu']}")
+    check(out["mfu"] == float(f"{out['mfu']:.4g}"),
+          f"bench mfu {out['mfu']} is not at 4 significant figures")
+
+    # the count on the CPU, where the kernels' plain versions run
+    t0 = time.perf_counter()
+    cpu = Trainer(cfg, "cpu", search_chunk=args.chunk)
+    batch = next(toy.toy_batches(
+        2, batch_size=args.batch, num_points=args.points, kind="room",
+        num_classes=bench.NUM_CLASSES, feat_dim=bench.FEAT_DIM))
+    cpu_flops = cpu.step_flops(
+        cpu.init_state(torch.Generator().manual_seed(0)), batch)
+    log(f"[bench] step_flops on the card {out['flops_per_step']:.6e}, on "
+        f"the CPU {cpu_flops:.6e} ({time.perf_counter() - t0:.1f} s)")
+    check(out["flops_per_step"] == cpu_flops,
+          f"step_flops card {out['flops_per_step']} != CPU {cpu_flops}")
+    log(f"[bench] {json.dumps(out)} [{card}]")
+    return counts, out, peak
+
+
 def main() -> int:
     try:
         import torch
@@ -4951,15 +4980,20 @@ def main() -> int:
     cfg = s3dis_config()
     model = build_model(cfg, torch.Generator().manual_seed(0), "cuda").eval()
     rows = phase_kernel(model, cfg, card)
-    launches, pps = phase_serve(model, cfg, card)
+    launches = phase_serve(model, cfg)
     blocks, _ = make_blocks("cpu")
     b0 = blocks[0]
     phase_parity(model, cfg, (b0["xyz"], b0["feats"], b0["mask"]), card)
     drows = phase_dslab(model, cfg, card)
-    train_launches, train_pps, peak = phase_train(cfg, card)
+    train_launches = phase_train(cfg, card)
     frows, fused_launches = phase_fused_conv(card)
+    # phase 21 runs here: phases 18 and 19 set their steps beside its own
+    t21 = time.perf_counter()
+    entry_launches, bench_out, peak = phase_bench(card)
+    log(f"[bench] phase 21 in {time.perf_counter() - t21:.1f} s")
+    train_pps = bench_out["value"]
     t9 = time.perf_counter()
-    entry_launches = phase_entry_points(card)
+    entry_launches = plus(entry_launches, phase_entry_points(card))
     log(f"[entry] phase 9 in {time.perf_counter() - t9:.1f} s")
     t10 = time.perf_counter()
     family_launches, k2_family, k3_family = phase_family(card)
@@ -5031,10 +5065,10 @@ def main() -> int:
         f"the ECD family's, the GPN family's, the composite models', the "
         f"Semantic3D pipelines', the Semantic3D scan's, the parallel "
         f"paths' (every rank's), the tools', the edge list's and conv "
-        f"tail's, the windowed-vs-exact A/B's and the search modes' and "
-        f"encoder settings', and the fused-conv bench's; "
-        f"eval "
-        f"{pps:.1f} "
+        f"tail's, the windowed-vs-exact A/B's, the search modes' and "
+        f"encoder settings' and the flagship bench's, and the fused-conv "
+        f"bench's; "
+        f"the bench's eval {bench_out['eval_points_per_sec_per_chip']:.1f} "
         f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "
         f"GiB")
     timing = ("ms", "plain_ms", "bound_ms", "bound_by")

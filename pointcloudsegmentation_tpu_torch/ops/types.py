@@ -19,6 +19,11 @@ class Neighborhood(NamedTuple):
     idx: torch.Tensor
     mask: torch.Tensor
 
+    @property
+    def k(self) -> int:
+        """Slots per point (JAX ``ops/types.py:31-33``)."""
+        return self.idx.shape[-1]
+
     def counts(self) -> torch.Tensor:
         """Per-point number of valid neighbors, float32 [N] (JAX
         ``ops/types.py:35-37``)."""
@@ -57,6 +62,12 @@ class WindowedNeighborhood:
     tile: int
     ov_window: int = 0
     pool_idx: Optional[torch.Tensor] = None
+
+    @property
+    def k(self) -> int:
+        """Windowed plus overflow slots per point (JAX
+        ``ops/types.py:85-87``)."""
+        return self.lidx.shape[-1] + self.ov_idx.shape[-1]
 
     @property
     def mask(self) -> torch.Tensor:

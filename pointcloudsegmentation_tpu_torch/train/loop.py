@@ -260,6 +260,33 @@ class Trainer:
                                           mask=valid)
         return cm, ((preds == labels_eff) & valid).sum(), valid.sum()
 
+    def _block_terms(self, batch: Dict, b: int, train: bool,
+                     gen: Optional[torch.Generator]):
+        """Block ``b``'s forward and unnormalised loss terms, the body the
+        per-block loop runs (JAX ``train/loop.py:288-300``): (s, w, the
+        metric row's logits, its effective labels, its valid mask)."""
+        d = self.cfg.data
+        extra_keys = getattr(self.model, "extra_keys", ())
+        logits = self.model(batch["xyz"][b], batch["feats"][b],
+                            batch["mask"][b],
+                            *(batch[k][b] for k in extra_keys),
+                            train=train, generator=gen)
+        labels, mask = batch["labels"][b], batch["mask"][b]
+        if logits.dim() == 1:
+            # one cloud: its logits, its label, and whether it has a valid
+            # point (a padding cloud of a test batch has none and counts
+            # nothing)
+            logits, labels, mask = logits[None], labels[:1], mask.any()[None]
+        base = None
+        if logits.dim() == 3:
+            logits, base = logits[0], logits[1]
+        s, w, labels_eff, valid = seg_loss_terms(
+            logits, labels, mask, self.class_weights, d.ignore_label)
+        if base is not None:
+            s = s + BASE_LOSS_WEIGHT * seg_loss_terms(
+                base, labels, mask, self.class_weights, d.ignore_label)[0]
+        return s, w, logits, labels_eff, valid
+
     def _accum(self, state: TrainState, batch: Dict, train: bool,
                grad: bool):
         """Per-block forward (+ backward into the flat gradient), block
@@ -278,32 +305,12 @@ class Trainer:
         cm = torch.zeros((c, c), dtype=torch.int64, device=self.device)
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
         count = torch.zeros_like(correct)
-        extra_keys = getattr(self.model, "extra_keys", ())
         with torch.set_grad_enabled(grad):
             for b in range(nb):
                 gen = self._dropout_generator(state.step, first + b) \
                     if train else None
-                logits = self.model(batch["xyz"][b], batch["feats"][b],
-                                    batch["mask"][b],
-                                    *(batch[k][b] for k in extra_keys),
-                                    train=train, generator=gen)
-                labels, mask = batch["labels"][b], batch["mask"][b]
-                if logits.dim() == 1:
-                    # one cloud: its logits, its label, and whether it has
-                    # a valid point (a padding cloud of a test batch has
-                    # none and counts nothing)
-                    logits, labels, mask = (logits[None], labels[:1],
-                                            mask.any()[None])
-                base = None
-                if logits.dim() == 3:
-                    logits, base = logits[0], logits[1]
-                s, w, labels_eff, valid = seg_loss_terms(
-                    logits, labels, mask, self.class_weights,
-                    d.ignore_label)
-                if base is not None:
-                    s = s + BASE_LOSS_WEIGHT * seg_loss_terms(
-                        base, labels, mask, self.class_weights,
-                        d.ignore_label)[0]
+                s, w, logits, labels_eff, valid = self._block_terms(
+                    batch, b, train, gen)
                 if grad:
                     s.backward()
                 s_acc += s.detach()
@@ -313,7 +320,7 @@ class Trainer:
                 cm += bcm
                 correct += bcorrect
                 count += bcount
-                del logits, base, s
+                del logits, s
         if self._group is not None:
             return self._all_reduce(s_acc, w_acc, cm, correct, count, grad)
         return s_acc, w_acc, cm, correct, count
@@ -369,6 +376,43 @@ class Trainer:
         good = torch.ones((), dtype=torch.bool, device=self.device)
         return state, self._metrics(s / w.clamp(min=1e-6), cm, correct,
                                     count, good)
+
+    def step_flops(self, state: TrainState, batch: Dict) -> float:
+        """Floating-point operations of ``train_step(state, batch)`` on this
+        process, for MFU (JAX ``train/loop.py:393-424``): the body the
+        per-block loop runs, block 0's training forward with its dropout
+        stream, loss terms and backward, counted by
+        ``torch.utils.flop_counter.FlopCounterMode`` and multiplied by the
+        batch's blocks (under a mesh, this rank's).  The Adam update
+        (O(params) elementwise) is left out, as JAX leaves it out.
+
+        The counter counts matmul-family ops only (mm, addmm, bmm,
+        baddbmm, convolution): the convs' projections and the search's
+        distance products, the backward's on autograd's device thread
+        too.  The gathers are indexed loads and the window-gather kernels
+        are no ops to it, so the count is the same on the card and on the
+        CPU, where the kernels' plain versions run (``chip_smoke.py``
+        phase 21 holds them equal).  XLA's cost analysis of the JAX step
+        counts every op, the TPU's one-hot matmuls that move rows among
+        them, so this count cannot be set beside the TPU's
+        (``BENCH_r05.json``).
+
+        ``state`` is not changed, and the next ``train_step`` runs as it
+        would have without this call."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        batch = to_device(batch, self.device)
+        nb = batch["xyz"].shape[0]
+        first = 0 if self.mesh is None else self.mesh.rank * nb
+        self.bind(state)
+        self._grad.zero_()
+        counter = FlopCounterMode(display=False)
+        with torch.enable_grad(), counter:
+            s = self._block_terms(batch, 0, True, self._dropout_generator(
+                state.step, first))[0]
+            s.backward()
+        self._grad.zero_()
+        return float(counter.get_total_flops() * nb)
 
     # -- epochs ----------------------------------------------------------
     def run_epoch(self, state: TrainState, batches: Iterable[Dict],

@@ -13,7 +13,7 @@ import pytest
 from pointcloudsegmentation_tpu.data import batching as jbatching
 from pointcloudsegmentation_tpu.data import native as jnative
 from pointcloudsegmentation_tpu.data import toy as jtoy
-from pointcloudsegmentation_tpu_torch import (bench_fused_conv,
+from pointcloudsegmentation_tpu_torch import (bench, bench_fused_conv,
                                               conv_compare, eval_parity,
                                               interpolate, parity_ab,
                                               profile_step, trace_step,
@@ -68,7 +68,7 @@ def test_port_and_chip_smoke_import_no_jax():
                  "utils.viz", "utils.profiling", "eval.analysis",
                  "analysis_compare", "verify_search_recall", "profile_step",
                  "trace_step", "conv_compare", "eval_parity",
-                 "ops.geometry"):
+                 "ops.geometry", "bench"):
         assert f"'pointcloudsegmentation_tpu_torch.{name}'" in walked, name
 
 
@@ -305,7 +305,7 @@ def test_bench_cli_defaults_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("entry", [
     "train.cli", "interpolate", "parity_ab", "verify_search_recall",
-    "profile_step", "trace_step", "conv_compare", "eval_parity"])
+    "profile_step", "trace_step", "conv_compare", "eval_parity", "bench"])
 def test_user_entry_points_default_to_the_card(entry, monkeypatch):
     """Without ``--device`` the CLIs ask for ``cuda`` and, with no card,
     raise instead of running on the CPU."""
@@ -313,7 +313,8 @@ def test_user_entry_points_default_to_the_card(entry, monkeypatch):
            "parity_ab": parity_ab,
            "verify_search_recall": verify_search_recall,
            "profile_step": profile_step, "trace_step": trace_step,
-           "conv_compare": conv_compare, "eval_parity": eval_parity}[entry]
+           "conv_compare": conv_compare, "eval_parity": eval_parity,
+           "bench": bench}[entry]
     seen = []
     real = cli.require_device
 
