@@ -88,8 +88,8 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    ``scannet_config``, without input features; the rest under
    ``s3dis_config``).  Their searches keep per-point overflow slots.
    (a) One ``Trainer`` step of 4 blocks each with a finite loss and both
-   kernels' launches as ``ecd_gathers`` counts them per block, then 3
-   more steps timed (train points/s); (b) each key's float32 logits on
+   kernels' launches as ``ecd_gathers`` counts them per block, then one
+   more step timed (train points/s); (b) each key's float32 logits on
    one block agree with the CPU's argmax on at least 0.999 of the valid
    points; (c) K2 bit for bit and K3 under phase 6's rules at the
    narrowest and the widest rows the nine keys gather, timed as in
@@ -98,8 +98,8 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    cut, bf16 compute, seeded weights.  (a) ``gpn_seg`` (26 anchors, three
    stages at 8192, 4096 and 1024 points, all windowed) takes one
    ``Trainer`` step of 4 toy blocks of 8192 points with a finite loss and
-   both kernels' launches as ``gpn_gathers`` counts them per block, then 3
-   more steps timed (train points/s, peak memory); (b) its float32 logits
+   both kernels' launches as ``gpn_gathers`` counts them per block, then
+   one more step timed (train points/s, peak memory); (b) its float32 logits
    on one block agree with the CPU's argmax on at least 0.999 of the
    valid points; (c) ``gpn_modelnet40`` takes ``Trainer`` steps on
    batches of 32 seeded synthetic clouds of 1024 points with the port's
@@ -118,8 +118,8 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    levels) and the refine cascade ``refine_s3dis`` (base ECD net, argmax,
    class-pure pyramid, refine net; [2, N, C] logits).  (a) Per key one
    ``Trainer`` step of 4 toy blocks of 8192 points with both kernels'
-   launches as ``composite_gathers`` counts them per block, then 3 more
-   steps timed, a finite loss at every step (train points/s, peak
+   launches as ``composite_gathers`` counts them per block, then one more
+   step timed, a finite loss at every step (train points/s, peak
    memory); (b) each key's float32 logits on one block agree with the
    CPU's argmax on at least 0.999 of the valid points (both rows of the
    cascade; the class-pure segments' agreement printed beside them);
@@ -325,6 +325,26 @@ Run from the root of a checkout.  Phases, each of which fails loudly:
    give them.  It runs after phase 8: phases 18 and 19 set their steps
    beside its train step and peak memory, and its train and eval points/s
    and peak memory are the ones the summary line gives.
+22. the measurement tools, in-process at full width.  (a) ``ab_arms``
+   with three arms on the flagship (8192 points, 4 blocks, search chunk
+   2048, ``iters`` 2): ``base``, whose K2 and K3 launches are its 9
+   steps' blocks' (``per_block``), ``exact`` (``{"PCS_DISABLE_WINDOWED":
+   "1"}``), which launches neither, and ``vmap`` (``PCS_BATCH_VMAP``, an
+   XLA batch strategy the port refuses): its error line shows, the later
+   arm still runs and the tool returns 1; the two result lines carry the
+   JAX keys in the JAX order with finite, positive numbers.
+   (b) ``model_breakdown --which conv``, ``sort`` and ``model``, (c)
+   ``microbench --which all --reps 4``: every row's ms (and its CUDA-graph
+   ms where the op could be captured) finite and positive; each row's K2
+   and K3 launches equal to its op's launches (K2 once a windowed conv
+   call and the flagship block's forward counts, K3 once a windowed conv
+   backward and the training block's counts; none in the plain conv rows,
+   the sort and pyramid rows and every microbench row) times the calls
+   that its timing made (``reps`` x 6 chained, one to find whether it
+   synchronises with the host, and 3 + ``reps`` for the graph where it
+   does not; a call that stopped at a synchronisation may have launched
+   part of its kernels); every row template of the JAX script's functions
+   that were run (read from ``scripts/`` with ``ast``) matches a row label.
 
 Prints one JSON line describing the kernels (launches on their phase's
 path, error, kernel, plain, bound and one-call library milliseconds), then
@@ -424,7 +444,9 @@ P20_GLOBAL = dict(sel_mode="global", win_cand_k=64)   # PCS_SEL_MODE=global
 #                                                       PCS_CAND_K=64
 P20_STEPS = 4               # training steps of the global flagship
 P20_TIMED_STEPS = 3         # (d), (e): the step again, timed; the median
-ECD_TIMED_STEPS = 3         # training steps timed after the counted first
+# training steps timed after the counted first (phases 11-13; 3 until the
+# measurement tools' phase 22 needed the time)
+ECD_TIMED_STEPS = 1
 DSLAB_F32_RTOL = 1e-6       # slab-gradient kernel vs plain, float32
 GRAD_COSINE_MIN = 0.999     # flat gradient, float32 card vs CPU
 K1_F32_RTOL = 1e-5          # fused conv vs plain, of the sum of magnitudes
@@ -4954,6 +4976,204 @@ def phase_bench(card):
     return counts, out, peak
 
 
+P22_ARM_ITERS = 2            # steps per chain of each ab_arms arm
+P22_ARMS = ({"label": "base"},
+            {"label": "exact", "env": {"PCS_DISABLE_WINDOWED": "1"}},
+            {"label": "vmap", "env": {"PCS_BATCH_VMAP": "1"}})
+P22_ARM_KEYS = ["label", "points_per_sec", "step_ms", "batch", "model",
+                "points", "chains_ms"]
+P22_REPS = 4                # microbench --reps
+P22_ITERS = 5               # microbench.repeat_timed's chains after its first
+P22_GRAPH_WARMUP = 3        # utils.timing.graph_ms's calls before capture
+
+
+def jax_row_patterns(script, functions):
+    """Regexes of the row labels that the JAX script ``scripts/<script>``
+    prints from ``functions``, read from its source with ``ast`` (no
+    import): each f-string that formats a time (``{t...}`` or
+    ``{step_time()...}``) after ": ", its text before that, each field
+    matching any text."""
+    import ast
+    import re
+
+    tree = ast.parse(open(os.path.join(ROOT, "scripts", script)).read())
+    pats = []
+    for fn in tree.body:
+        if not (isinstance(fn, ast.FunctionDef) and fn.name in functions):
+            continue
+        for node in ast.walk(fn):
+            if not isinstance(node, ast.JoinedStr):
+                continue
+            vals, label = node.values, None
+            for i, v in enumerate(vals[:-1]):
+                nxt = vals[i + 1]
+                timed = isinstance(nxt, ast.FormattedValue) and (
+                    ast.unparse(nxt.value) in ("t", "step_time()"))
+                if (isinstance(v, ast.Constant) and v.value.endswith(": ")
+                        and timed):
+                    label = vals[:i] + [ast.Constant(v.value[:-2])]
+                    break
+            if label is not None:
+                pats.append("".join(
+                    re.escape(x.value) if isinstance(x, ast.Constant)
+                    else ".+" for x in label))
+    check(pats, f"no timed rows found in scripts/{script} {functions}")
+    return pats
+
+
+def p22_rows(what, run, per_call, extra, script, functions):
+    """Run ``run`` (a tool's ``main``) with ``microbench.time_row`` wrapped
+    to count each row's K2 and K3 launches, and check every row: its ms
+    (and device ms) finite and positive, its launches ``per_call(label)``
+    times the calls its timing made, the run's launches those of its rows
+    plus ``extra`` (made outside them), and every JAX row template
+    matched.  Returns the run's launches."""
+    import math
+    import re
+
+    from pointcloudsegmentation_tpu_torch import microbench as mb
+
+    real, seen = mb.time_row, []
+
+    def counted(label, op, seed_val, reps, nbytes=0, note=""):
+        before = read_counts()
+        row = real(label, op, seed_val, reps, nbytes, note)
+        after = read_counts()
+        seen.append((row, reps, {k: after[k] - before[k] for k in after}))
+        return row
+
+    mb.time_row = counted
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rows = run()
+    finally:
+        mb.time_row = real
+    total = read_counts()
+    log(f"[measure] {what}: {len(rows)} rows in "
+        f"{time.perf_counter() - t0:.1f} s; launches {total}")
+    for r in rows:
+        check(math.isfinite(r.ms) and r.ms > 0, f"{what} {r.label}: ms "
+              f"{r.ms}")
+        check(r.device_ms is None or (math.isfinite(r.device_ms)
+                                      and r.device_ms > 0),
+              f"{what} {r.label}: device ms {r.device_ms}")
+    in_rows = {}
+    for r, reps, counts in seen:
+        one = per_call(r.label)
+        calls = reps * (1 + P22_ITERS)
+        if r.device_ms is not None:
+            calls += 1 + P22_GRAPH_WARMUP + reps
+        for k, v in counts.items():
+            lo = one.get(k, 0) * calls
+            hi = lo + (one.get(k, 0) if r.device_ms is None else 0)
+            check(lo <= v <= hi, f"{what} {r.label}: {k} launched {v} "
+                  f"times, expected {lo}" + (f" to {hi}" if hi > lo else ""))
+        in_rows = plus(in_rows, counts)
+    want = plus(in_rows, extra)
+    for k, v in total.items():
+        check(v == want.get(k, 0), f"{what}: {k} launched {v} times, its "
+              f"rows {in_rows.get(k, 0)} and {extra.get(k, 0)} outside them")
+    labels = [r.label for r in rows]
+    for pat in jax_row_patterns(script, functions):
+        check(any(re.fullmatch(pat, lb) for lb in labels),
+              f"{what}: no row for the JAX row {pat!r} of scripts/{script}")
+    return total
+
+
+def p22_arms(cfg, card):
+    """(a): ``ab_arms.main`` with ``P22_ARMS``, each arm's launches read
+    around it.  Returns the launches."""
+    import contextlib
+    import io
+    import math
+
+    from pointcloudsegmentation_tpu_torch import ab_arms
+
+    _, step = per_block(cfg)
+    steps = ab_arms.WARMUP + ab_arms.CHAINS * P22_ARM_ITERS
+    expect = {"base": times(step, steps * TRAIN_BLOCKS), "exact": {},
+              "vmap": {}}
+    arms = [dict(a, iters=P22_ARM_ITERS) for a in P22_ARMS]
+    real, counts = ab_arms.run_arm, {}
+
+    def counted(arm, device="cuda"):
+        reset_counts()
+        try:
+            return real(arm, device)
+        finally:
+            counts[arm["label"]] = read_counts()
+
+    ab_arms.run_arm = counted
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = ab_arms.main([json.dumps(arms)])
+    finally:
+        ab_arms.run_arm = real
+    lines = [json.loads(x) for x in out.getvalue().splitlines()]
+    for line in lines:
+        log(f"[measure] ab_arms {json.dumps(line)} [{card}]")
+    log(f"[measure] ab_arms: returned {rc} in "
+        f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+    check(rc == 1, f"ab_arms returned {rc} with a refused arm")
+    check([x["label"] for x in lines] == [a["label"] for a in arms],
+          f"ab_arms lines {lines}")
+    for x in lines[:2]:
+        check(list(x) == P22_ARM_KEYS, f"ab_arms keys {list(x)}")
+        check(x["model"] == cfg.model and x["points"] == cfg.data.num_points
+              and x["batch"] == TRAIN_BLOCKS, f"ab_arms workload {x}")
+        for v in [x["points_per_sec"], x["step_ms"], *x["chains_ms"]]:
+            check(math.isfinite(v) and v > 0, f"ab_arms {x['label']}: {v}")
+    check(list(lines[2]) == ["label", "error"]
+          and "PCS_BATCH_VMAP" in lines[2]["error"],
+          f"ab_arms refused arm {lines[2]}")
+    total = {}
+    for label, want in expect.items():
+        for k, v in counts[label].items():
+            check(v == want.get(k, 0), f"ab_arms {label}: {k} launched {v} "
+                  f"times, expected {want.get(k, 0)}")
+        total = plus(total, counts[label])
+    return total
+
+
+def phase_measure(cfg, card):
+    """22: the measurement tools (see the docstring).  Returns their
+    launches."""
+    from pointcloudsegmentation_tpu_torch import microbench, model_breakdown
+
+    total = p22_arms(cfg, card)
+    fwd, step = per_block(cfg)
+    conv_fwd = {"window_gather": 1}
+    conv_step = {"window_gather": 1, "window_dslab": 1, "window_dslab_map": 1}
+
+    def per_call(label):
+        if "[windowed]" in label:
+            return conv_step if "fwd+bwd" in label else conv_fwd
+        if "full model fwd+bwd" in label:
+            return step
+        return fwd if "full model fwd" in label else {}
+
+    # launches outside the rows: the conv rows' windowed search (one K2
+    # geometry read of its global selection), the model rows' chained steps
+    steps = model_breakdown.STEP_WARMUP + model_breakdown.STEP_REPS
+    for which, extra in (("conv", {"window_gather": 1}), ("sort", {}),
+                         ("model", times(step, steps * TRAIN_BLOCKS))):
+        total = plus(total, p22_rows(
+            f"model_breakdown --which {which}",
+            lambda: model_breakdown.main(["--which", which]), per_call,
+            extra, "model_breakdown.py", (f"bench_{which}",)))
+    bench_fns = tuple(f"bench_{w}" for w in (
+        "gather_scatter", "conv_shapes", "onehot_window", "select",
+        "select2", "windowed", "scatter_variants", "compaction"))
+    n = p22_rows(f"microbench --which all --reps {P22_REPS}",
+                 lambda: microbench.main(["--which", "all", "--reps",
+                                          str(P22_REPS)]),
+                 lambda label: {}, {}, "microbench.py", bench_fns)
+    return plus(total, n)
+
+
 def main() -> int:
     try:
         import torch
@@ -5051,6 +5271,9 @@ def main() -> int:
     rows += k2_modes
     drows += k3_modes
     entry_launches = plus(entry_launches, modes_launches)
+    t22 = time.perf_counter()
+    entry_launches = plus(entry_launches, phase_measure(cfg, card))
+    log(f"[measure] phase 22 in {time.perf_counter() - t22:.1f} s")
 
     main_row = next(r for r in rows if r["name"].endswith("conv"))
     dmain, fmain = drows[0], frows[0]
@@ -5066,7 +5289,8 @@ def main() -> int:
         f"Semantic3D pipelines', the Semantic3D scan's, the parallel "
         f"paths' (every rank's), the tools', the edge list's and conv "
         f"tail's, the windowed-vs-exact A/B's, the search modes' and "
-        f"encoder settings' and the flagship bench's, and the fused-conv "
+        f"encoder settings', the flagship bench's and the measurement "
+        f"tools', and the fused-conv "
         f"bench's; "
         f"the bench's eval {bench_out['eval_points_per_sec_per_chip']:.1f} "
         f"dense points/s, train {train_pps:.1f} points/s, peak {peak:.3f} "

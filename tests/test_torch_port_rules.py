@@ -13,9 +13,11 @@ import pytest
 from pointcloudsegmentation_tpu.data import batching as jbatching
 from pointcloudsegmentation_tpu.data import native as jnative
 from pointcloudsegmentation_tpu.data import toy as jtoy
-from pointcloudsegmentation_tpu_torch import (bench, bench_fused_conv,
+from pointcloudsegmentation_tpu_torch import (ab_arms, bench,
+                                              bench_fused_conv,
                                               conv_compare, eval_parity,
-                                              interpolate, parity_ab,
+                                              interpolate, microbench,
+                                              model_breakdown, parity_ab,
                                               profile_step, trace_step,
                                               verify_search_recall)
 from pointcloudsegmentation_tpu_torch.data import batching as tbatching
@@ -68,7 +70,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "utils.viz", "utils.profiling", "eval.analysis",
                  "analysis_compare", "verify_search_recall", "profile_step",
                  "trace_step", "conv_compare", "eval_parity",
-                 "ops.geometry", "bench"):
+                 "ops.geometry", "bench", "ab_arms", "model_breakdown",
+                 "microbench"):
         assert f"'pointcloudsegmentation_tpu_torch.{name}'" in walked, name
 
 
@@ -305,7 +308,8 @@ def test_bench_cli_defaults_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("entry", [
     "train.cli", "interpolate", "parity_ab", "verify_search_recall",
-    "profile_step", "trace_step", "conv_compare", "eval_parity", "bench"])
+    "profile_step", "trace_step", "conv_compare", "eval_parity", "bench",
+    "ab_arms", "model_breakdown", "microbench"])
 def test_user_entry_points_default_to_the_card(entry, monkeypatch):
     """Without ``--device`` the CLIs ask for ``cuda`` and, with no card,
     raise instead of running on the CPU."""
@@ -314,7 +318,9 @@ def test_user_entry_points_default_to_the_card(entry, monkeypatch):
            "verify_search_recall": verify_search_recall,
            "profile_step": profile_step, "trace_step": trace_step,
            "conv_compare": conv_compare, "eval_parity": eval_parity,
-           "bench": bench}[entry]
+           "bench": bench, "ab_arms": ab_arms,
+           "model_breakdown": model_breakdown,
+           "microbench": microbench}[entry]
     seen = []
     real = cli.require_device
 
@@ -325,7 +331,8 @@ def test_user_entry_points_default_to_the_card(entry, monkeypatch):
     monkeypatch.setattr(mod, "require_device", require_device)
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     argv = {"train.cli": ["--synthetic"], "interpolate": ["--synthetic"],
-            "parity_ab": ["--epochs", "1"]}.get(entry, [])
+            "parity_ab": ["--epochs", "1"],
+            "ab_arms": ['[{"label": "base"}]']}.get(entry, [])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(argv)
     assert seen == ["cuda"]
