@@ -1,0 +1,11 @@
+"""The device's idle share of the profiled stretch: one minus the union of
+its kernel, copy and set intervals over the stretch's length."""
+
+UNIT = "%"
+MOVES = "label_points_per_s"
+WORKLOADS = ["pointnet_s3dis.label_dense", "ecd_s3dis.label_dense"]
+
+
+def read(ctx):
+    t = ctx["trace"]
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])

@@ -1,0 +1,11 @@
+"""The device's idle share of the profiled stretch: one minus the union of
+its kernel, copy and set intervals over the stretch's length."""
+
+UNIT = "%"
+MOVES = "train_points_per_s"
+WORKLOADS = ["pointnet_s3dis.train_dense", "ecd_s3dis.train_dense"]
+
+
+def read(ctx):
+    t = ctx["trace"]
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])

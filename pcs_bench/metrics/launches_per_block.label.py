@@ -1,0 +1,11 @@
+"""Kernel launches a block (runtime launch calls in the profiled stretch
+over its blocks): the host's dispatch work, which paces the block where
+the device waits on it."""
+
+UNIT = "launches/block"
+MOVES = "label_points_per_s"
+WORKLOADS = ["pointnet_s3dis.label_dense", "ecd_s3dis.label_dense"]
+
+
+def read(ctx):
+    return ctx["trace"]["launches"] / ctx["traced_blocks"]

@@ -1,0 +1,13 @@
+"""The whole label work's share of the card's dense bf16 peak: the blocks
+of the unprofiled window times the operations of one block (counted on the
+reference from the configuration's shapes, counts/work.py) over the
+window's seconds and the peak."""
+
+UNIT = "%"
+MOVES = "label_points_per_s"
+WORKLOADS = ["pointnet_s3dis.label_dense", "ecd_s3dis.label_dense"]
+
+
+def read(ctx):
+    flops = ctx["work"]["flops"] * ctx["window_blocks"]
+    return 100.0 * flops / ctx["window_s"] / ctx["peaks"]["bf16_flops"]

@@ -1,0 +1,29 @@
+"""Weights made on the device from the seed, in two large calls."""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+
+def torch_seed(seed: int, stream: int) -> int:
+    """A 63-bit generator seed for stream ``stream`` of run seed ``seed``."""
+    s = np.random.SeedSequence([seed & (2 ** 64 - 1), stream])
+    return int(s.generate_state(1, np.uint64)[0]) & 0x7FFFFFFFFFFFFFFF
+
+
+def glorot_flat(leaves: List, seed: int, device) -> torch.Tensor:
+    """The flat float32 parameter vector in ``leaves``' order: every Dense
+    kernel uniform in (-l, l) with its Glorot limit l = sqrt(6 / (in +
+    out)), every bias 0.  One uniform draw on ``device`` from a generator
+    seeded by ``seed``, scaled by a per-element limit."""
+    device = torch.device(device)
+    gen = torch.Generator(device).manual_seed(torch_seed(seed, 0))
+    sizes = torch.tensor([leaf.size for leaf in leaves], device=device)
+    limits = torch.tensor([leaf.limit for leaf in leaves],
+                          dtype=torch.float32, device=device)
+    total = int(sum(leaf.size for leaf in leaves))
+    u = torch.rand(total, generator=gen, device=device)
+    return (2.0 * u - 1.0) * torch.repeat_interleave(limits, sizes,
+                                                     output_size=total)
