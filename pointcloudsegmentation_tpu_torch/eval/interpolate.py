@@ -14,6 +14,7 @@ from torch import nn
 from ..data import native
 from ..data.augment import rotate_z
 from ..ops import interpolate as interp_ops
+from ..utils import profiling
 
 # the reference's Gaussian ratios: S3DIS 6-NN 1/(2·0.075²)
 # (interpolate.py:140), Semantic3D 8-NN 1/(2·0.125²)
@@ -35,18 +36,21 @@ def eval_scene_probs(model: nn.Module, blocks: Iterable[Dict],
     order after (xyz, feats, mask) (JAX ``eval/interpolate.py:27-58``).
     ``model(xyz, feats, mask, *extras)`` returns logits [N, C], or [2, N,
     C] for the refine cascade, whose refine row is used (JAX
-    ``:47-49``); softmax runs in float32.  The sweep is issued without
-    host synchronisation; probabilities come back in one transfer at the
-    end."""
+    ``:47-49``); softmax runs in float32.  Each block's forward waits on
+    the card where it syncs (in the pyramid and the encoder's pools: a
+    profiled sweep shows them under ``pcs.forward``); after the sweep each
+    block's mask, xyz and probabilities come to the host, three transfers
+    a block where the blocks are on the card."""
     dev = next(model.parameters()).device
     blocks = list(blocks)
     dev_probs = []
     for b in blocks:
-        logits = model(*(torch.as_tensor(b[k], device=dev) for k in
-                         ("xyz", "feats", "mask", *extra_keys)))
-        if logits.dim() == 3:
-            logits = logits[0]
-        dev_probs.append(torch.softmax(logits.float(), dim=-1))
+        with profiling.span("pcs.forward"):
+            logits = model(*(torch.as_tensor(b[k], device=dev) for k in
+                             ("xyz", "feats", "mask", *extra_keys)))
+            if logits.dim() == 3:
+                logits = logits[0]
+            dev_probs.append(torch.softmax(logits.float(), dim=-1))
     all_xyz, all_probs = [], []
     for b, p in zip(blocks, dev_probs):
         m = torch.as_tensor(b["mask"]).cpu().numpy()

@@ -32,6 +32,7 @@ from ..ops import hierarchy as hier
 from ..ops import neighbors as nb
 from ..ops import search
 from ..ops.types import Pyramid
+from ..utils import profiling
 from .layers import (Dense, ECDConv, PointNetConv, PointNetPoolMLP,
                      add_growth, growth)
 from .variants import ECDFeatsV2, ECDFeatsV4, ECDXyzV2, l2_normalise
@@ -54,9 +55,11 @@ def _search_one(xyz: torch.Tensor, mask: torch.Tensor, radius: float,
     """One band (0, radius, k) with the JAX stages' candidate pool of 4k:
     (neighborhood, raw sxyz [N, K+Ko, 3]); ``windowed=False`` takes the
     global search on every level."""
-    (res,) = search.band_neighbors_auto(
-        xyz, mask, ((0.0, radius, k),), cand_k=min(4 * k, xyz.shape[0]),
-        chunk=chunk, return_sxyz=True, sorted=is_sorted, windowed=windowed)
+    with profiling.span("pcs.search"):
+        (res,) = search.band_neighbors_auto(
+            xyz, mask, ((0.0, radius, k),), cand_k=min(4 * k, xyz.shape[0]),
+            chunk=chunk, return_sxyz=True, sorted=is_sorted,
+            windowed=windowed)
     return res
 
 

@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import hierarchy as hier
 from ..ops import search
 from ..ops.types import Pyramid
+from ..utils import profiling
 from .ecd import MLPAnchorConv
 from .fast_conv import PointNetConvFast
 from .layers import (Dense, FCEmbed, GrowthMLP, PointNetConv,
@@ -434,28 +435,31 @@ class PointNetSegEncoder(nn.Module):
         returns spec -> (neighborhood, sxyz, edges): the level's shared
         ``EdgeOverflow`` where ``ov_mode="edges"`` and the level is
         windowed, else None."""
-        uniq = list(dict.fromkeys(specs))
-        bands = tuple((mn, mx, k) for (mx, mn, k) in uniq)
-        n = xyz.shape[0]
-        chunk = min(self.search_chunk, n)
-        if (self.windowed and is_sorted and n % self.win_tile == 0
-                and n >= 4 * self.win_tile):
-            # no wide overflow tier: the JAX encoder passes ov_window=0
-            res = search.windowed_multi_band_neighbors(
-                xyz, mask, bands, tile=self.win_tile, window=self.win_window,
-                cand_k=search.effective_win_cand_k(self.win_cand_k,
-                                                   self.cand_k, bands, n),
-                ov_slots=self.ov_slots, chunk=chunk,
-                ov_pool_size=self.ov_pool_size, return_sxyz=True,
-                ov_mode=self.ov_mode, edge_ratio=edge_ratio,
-                sel_mode=self.sel_mode)
-            if self.ov_mode == "edges":
-                return dict(zip(uniq, res))
-        else:
-            res = search.multi_band_neighbors(
-                xyz, mask, bands, cand_k=min(self.cand_k, n), chunk=chunk,
-                return_sxyz=True)
-        return {spec: (nbr, sx, None) for spec, (nbr, sx) in zip(uniq, res)}
+        with profiling.span("pcs.search"):
+            uniq = list(dict.fromkeys(specs))
+            bands = tuple((mn, mx, k) for (mx, mn, k) in uniq)
+            n = xyz.shape[0]
+            chunk = min(self.search_chunk, n)
+            if (self.windowed and is_sorted and n % self.win_tile == 0
+                    and n >= 4 * self.win_tile):
+                # no wide overflow tier: the JAX encoder passes ov_window=0
+                res = search.windowed_multi_band_neighbors(
+                    xyz, mask, bands, tile=self.win_tile,
+                    window=self.win_window,
+                    cand_k=search.effective_win_cand_k(
+                        self.win_cand_k, self.cand_k, bands, n),
+                    ov_slots=self.ov_slots, chunk=chunk,
+                    ov_pool_size=self.ov_pool_size, return_sxyz=True,
+                    ov_mode=self.ov_mode, edge_ratio=edge_ratio,
+                    sel_mode=self.sel_mode)
+                if self.ov_mode == "edges":
+                    return dict(zip(uniq, res))
+            else:
+                res = search.multi_band_neighbors(
+                    xyz, mask, bands, cand_k=min(self.cand_k, n),
+                    chunk=chunk, return_sxyz=True)
+            return {spec: (nbr, sx, None)
+                    for spec, (nbr, sx) in zip(uniq, res)}
 
     def stage_specs(self, s: int):
         """The (radius, min_radius, k) of every search at stage ``s``: its

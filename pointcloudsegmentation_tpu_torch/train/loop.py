@@ -45,6 +45,7 @@ from ..config import TrainConfig
 from ..convert import ravel_layout, ravel_params
 from ..data.provider import device_prefetch, to_device
 from ..parallel.mesh import Mesh, replicate
+from ..utils import profiling
 from . import metrics as metrics_lib
 from .model_zoo import build_model
 
@@ -309,10 +310,12 @@ class Trainer:
             for b in range(nb):
                 gen = self._dropout_generator(state.step, first + b) \
                     if train else None
-                s, w, logits, labels_eff, valid = self._block_terms(
-                    batch, b, train, gen)
+                with profiling.span("pcs.forward"):
+                    s, w, logits, labels_eff, valid = self._block_terms(
+                        batch, b, train, gen)
                 if grad:
-                    s.backward()
+                    with profiling.span("pcs.backward"):
+                        s.backward()
                 s_acc += s.detach()
                 w_acc += w
                 bcm, bcorrect, bcount = self._block_metrics(
@@ -361,7 +364,11 @@ class Trainer:
     def train_step(self, state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict]:
         """One optimizer step over the batch's blocks (batch arrays are
-        [B, N, ...]).  Metrics are device tensors; nothing synchronises."""
+        [B, N, ...]).  Metrics are device tensors, and the step reads none
+        of them back; each block's forward still waits on the card where
+        it syncs (in the pyramid and the encoder's pools, none in the
+        search or the backward: a profiled step shows them under
+        ``pcs.forward``)."""
         s, w, cm, correct, count = self._accum(state, batch, True, True)
         denom = w.clamp(min=1e-6)
         loss = s / denom

@@ -36,6 +36,7 @@ from ..models.pointnet import (HEAD_DIM, OV_POOL_SIZE, S3DIS_ARCH,
                                StageSpec)
 from ..ops import hierarchy as hier
 from ..ops import morton, search
+from ..utils import profiling
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 # the diffusion path's neighborhood (JAX train/model_zoo.py:64-65) and the
@@ -112,7 +113,8 @@ class SegmentationModel(nn.Module):
             xyz, mask, cell, self.block_size, feats)
         pyr = hier.build_pyramid(xyz, mask, self.voxel_sizes, self.caps,
                                  self.block_size, morton_sorted=True)
-        gf, lf = self.encoder(pyr, feats)
+        with profiling.span("pcs.encoder"):
+            gf, lf = self.encoder(pyr, feats)
         logits = self.head(gf, lf, train, generator)
         if hasattr(self, "diffusion"):
             n = xyz.shape[0]

@@ -5,9 +5,19 @@ Replaces the reference's TF full-trace Chrome timelines
 (model_pooling.py:608-619, tf_ops/test/test_speed.py:55-80): ``trace``
 writes a ``torch.profiler`` Chrome trace (``*.pt.trace.json``, which
 Perfetto reads), ``time_fn`` is a steady-state timer of a function, and
-``Throughput`` the reference's ``examples/s`` counter
-(train_gpn_scannet_new.py:169-183).  ``by_name`` sums profiler rows by
-name, for ``profile_train`` and ``trace_step``.
+``by_name`` sums profiler rows by name, for ``profile_train`` and
+``trace_step``.
+
+``span`` marks the port's layer boundaries.  Four spans are placed, each
+once where its layer is entered: ``pcs.forward`` (one block's forward:
+``Trainer._accum`` with the loss terms, ``eval_scene_probs`` with the
+softmax), ``pcs.encoder`` (``SegmentationModel``'s encoder call),
+``pcs.search`` (one stage's neighbourhood search) and ``pcs.backward``
+(one block's backward, whose launches run on autograd's device thread
+while the span is open).  They appear in every ``torch.profiler`` trace,
+so in ``trace``'s Chrome trace (``trace_step``, ``profile_step``) for
+Perfetto, on the host clock of the trace's CUDA runtime calls (the
+device events' converted times can drift from it within a trace).
 """
 from __future__ import annotations
 
@@ -20,6 +30,18 @@ from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
                     Tuple)
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` span while a profiler
+    records, else one shared null context: with no profiler a span costs
+    a function call and a flag read, not the record function's own
+    microseconds."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -85,28 +107,6 @@ def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 10,
     return {"ms_median": times[len(times) // 2], "ms_min": times[0],
             "ms_max": times[-1],
             "ms_mean": sum(times) / len(times)}
-
-
-class Throughput:
-    """Streaming blocks/s + points/s counter (the reference's per-log_step
-    examples/s line)."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self._t0 = time.perf_counter()
-        self.blocks = 0
-        self.points = 0
-
-    def update(self, blocks: int, points: int):
-        self.blocks += blocks
-        self.points += points
-
-    def rates(self) -> Dict[str, float]:
-        dt = max(time.perf_counter() - self._t0, 1e-9)
-        return {"blocks_per_sec": self.blocks / dt,
-                "points_per_sec": self.points / dt}
 
 
 def by_name(rows: Iterable[Tuple[str, float, float]], steps: int = 1

@@ -151,15 +151,6 @@ def test_time_fn_keys():
     assert got["ms_min"] <= got["ms_median"] <= got["ms_max"]
 
 
-def test_throughput_rates_keys():
-    t, j = tprofiling.Throughput(), jprofiling.Throughput()
-    for c in (t, j):
-        c.update(2, 1000)
-    assert t.rates().keys() == j.rates().keys()
-    assert t.blocks == 2 and t.points == 1000
-    assert all(v > 0 for v in t.rates().values())
-
-
 def test_trace_of_a_cpu_forward_is_analyzed(tiny, tmp_path, capsys):
     with tprofiling.trace(str(tmp_path), cuda=False):
         with torch.no_grad():
