@@ -17,9 +17,8 @@ import time
 from typing import Dict, List
 
 import torch
-from torch.profiler import record_function
 
-from . import compare, trace
+from . import compare, spans, trace
 from .counts import peaks
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -153,17 +152,13 @@ def traced_stretch(drv, cell: Cell, units: int, window_s: float,
                    device) -> Dict:
     """The profiled stretch after the window (``trace_units`` units and one
     host read), and what the per-layer readers read: its trace summary,
-    the window's units and seconds, the block's counted work and the
-    card's peaks."""
+    its attribution to the port's spans (``spans.attribute``), the window's
+    units and seconds, the block's counted work and the card's peaks."""
     n = cell.traffic["trace_units"]
-    with trace.profiled() as prof:
-        with record_function("bench.window"):
-            for _ in range(n):
-                drv.unit()
-            drv.close()
-    t0, t1 = trace.clock_us(prof["events"], "bench.window")
-    summary = trace.summarise(prof["events"], t0, t1)
-    return {"trace": summary,
+    st = trace.stretch(drv, n)
+    ev, t0, t1 = st["events"], st["t0_us"], st["t1_us"]
+    return {"trace": trace.summarise(ev, t0, t1),
+            "spans": spans.attribute(ev, t0, t1),
             "traced_units": n, "traced_blocks": n * drv.blocks_per_unit,
             "window_s": window_s, "window_blocks": units * drv.blocks_per_unit,
             "work": drv.block_work(),

@@ -3,7 +3,7 @@ its kernel, copy and set intervals over the stretch's length."""
 
 UNIT = "%"
 MOVES = "label_points_per_s"
-WORKLOADS = ["pointnet_s3dis.label_dense", "ecd_s3dis.label_dense"]
+ENTRY = "scene_probs"
 
 
 def read(ctx):

@@ -3,7 +3,7 @@ its kernel, copy and set intervals over the stretch's length."""
 
 UNIT = "%"
 MOVES = "train_points_per_s"
-WORKLOADS = ["pointnet_s3dis.train_dense", "ecd_s3dis.train_dense"]
+ENTRY = "train_step"
 
 
 def read(ctx):

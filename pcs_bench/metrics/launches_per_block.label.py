@@ -4,7 +4,7 @@ the device waits on it."""
 
 UNIT = "launches/block"
 MOVES = "label_points_per_s"
-WORKLOADS = ["pointnet_s3dis.label_dense", "ecd_s3dis.label_dense"]
+ENTRY = "scene_probs"
 
 
 def read(ctx):

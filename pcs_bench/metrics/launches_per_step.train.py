@@ -4,7 +4,7 @@ the device waits on it."""
 
 UNIT = "launches/step"
 MOVES = "train_points_per_s"
-WORKLOADS = ["pointnet_s3dis.train_dense", "ecd_s3dis.train_dense"]
+ENTRY = "train_step"
 
 
 def read(ctx):

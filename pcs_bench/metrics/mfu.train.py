@@ -5,7 +5,7 @@ window's seconds and the peak."""
 
 UNIT = "%"
 MOVES = "train_points_per_s"
-WORKLOADS = ["pointnet_s3dis.train_dense", "ecd_s3dis.train_dense"]
+ENTRY = "train_step"
 
 
 def read(ctx):

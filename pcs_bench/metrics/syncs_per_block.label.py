@@ -5,7 +5,7 @@ idles while the host dispatches what follows."""
 
 UNIT = "syncs/block"
 MOVES = "label_points_per_s"
-WORKLOADS = ["pointnet_s3dis.label_dense", "ecd_s3dis.label_dense"]
+ENTRY = "scene_probs"
 
 
 def read(ctx):

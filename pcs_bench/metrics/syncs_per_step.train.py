@@ -5,7 +5,7 @@ idles while the host dispatches what follows."""
 
 UNIT = "syncs/step"
 MOVES = "train_points_per_s"
-WORKLOADS = ["pointnet_s3dis.train_dense", "ecd_s3dis.train_dense"]
+ENTRY = "train_step"
 
 
 def read(ctx):

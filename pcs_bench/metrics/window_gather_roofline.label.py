@@ -7,7 +7,7 @@ where no such kernel ran."""
 
 UNIT = "%"
 MOVES = "label_points_per_s"
-WORKLOADS = ["pointnet_s3dis.label_dense", "ecd_s3dis.label_dense"]
+ENTRY = "scene_probs"
 KERNELS = ("window_gather_kernel", "window_dslab_map_kernel",
            "window_dslab_sum_kernel")
 

@@ -7,7 +7,7 @@ where no such kernel ran."""
 
 UNIT = "%"
 MOVES = "train_points_per_s"
-WORKLOADS = ["pointnet_s3dis.train_dense", "ecd_s3dis.train_dense"]
+ENTRY = "train_step"
 KERNELS = ("window_gather_kernel", "window_dslab_map_kernel",
            "window_dslab_sum_kernel")
 

@@ -81,42 +81,65 @@ def build(cfg: Dict, device, compute: str = "float32") -> SegmentationModel:
     return model.to(device)
 
 
+# the leaf kinds of the port's encoders, by the parameter's own name: its
+# name in the flat layout's sorted paths and how it starts, ``GLOROT`` (a
+# uniform draw within the Glorot limit of its two stored dims) or that
+# constant.  Only ``weight``, a Dense weight, is stored [in, out] as a
+# ``kernel``; a GPN conv's ``pw`` [ifn, m * out] is stored as it is.
+GLOROT = "glorot"
+LEAF_KINDS = {"weight": ("kernel", GLOROT), "bias": ("bias", 0.0),
+              "pw": ("pw", GLOROT),
+              "edge_weights_trans": ("edge_weights_trans", 1.0),
+              "scale": ("scale", 1.0)}
+
+
 class Leaf(NamedTuple):
     """One parameter in the flat vector: its name, its stored shape (a Dense
-    weight as [in, out]), where it starts, and its Glorot limit (0 for a
-    bias)."""
+    weight as [in, out]), where it starts, and how it starts: drawn within
+    its Glorot ``limit``, or (``limit`` 0) the constant ``const``."""
     key: str
     shape: Tuple[int, ...]
     offset: int
     limit: float
+    const: float = 0.0
 
     @property
     def size(self) -> int:
         return int(np.prod(self.shape))
 
+    @property
+    def kernel(self) -> bool:
+        """A Dense weight, stored [in, out] and seen transposed."""
+        return self.key.rsplit(".", 1)[-1] == "weight"
+
     def view(self, flat: torch.Tensor) -> torch.Tensor:
         v = flat[self.offset:self.offset + self.size].view(self.shape)
-        return v.t() if len(self.shape) == 2 else v
+        return v.t() if self.kernel else v
 
 
 def layout(model: nn.Module) -> List[Leaf]:
     """The flat order of the parameters: sorted by their path with a Dense
     weight named ``kernel`` and stored [in, out], as
-    ``jax.flatten_util.ravel_pytree`` lays out a flax tree."""
+    ``jax.flatten_util.ravel_pytree`` lays out a flax tree.  A parameter of
+    a kind not in ``LEAF_KINDS`` (a trainable anchor, ``alpha``, a
+    trainable ``pmiu``), or a ``weight`` that is not 2-D, raises."""
     entries = []
     for key, p in model.named_parameters():
         *mods, name = key.split(".")
-        if name == "weight":
-            path, shape = tuple(mods) + ("kernel",), tuple(p.shape[::-1])
-            limit = math.sqrt(6.0 / (shape[0] + shape[1]))
-        elif name == "bias":
-            path, shape, limit = tuple(mods) + ("bias",), tuple(p.shape), 0.0
+        if name not in LEAF_KINDS or (name == "weight" and p.dim() != 2):
+            raise KeyError(f"parameter {key} is of no leaf kind the "
+                           f"benchmark lays out: {', '.join(LEAF_KINDS)} "
+                           f"(a weight 2-D)")
+        path_name, start = LEAF_KINDS[name]
+        shape = tuple(p.shape[::-1]) if name == "weight" else tuple(p.shape)
+        if start == GLOROT:
+            limit, const = math.sqrt(6.0 / (shape[0] + shape[1])), 0.0
         else:
-            raise KeyError(f"parameter {key} is neither weight nor bias")
-        entries.append((path, key, shape, limit))
+            limit, const = 0.0, start
+        entries.append((tuple(mods) + (path_name,), key, shape, limit, const))
     out, offset = [], 0
-    for _, key, shape, limit in sorted(entries):
-        out.append(Leaf(key, shape, offset, limit))
+    for _, key, shape, limit, const in sorted(entries):
+        out.append(Leaf(key, shape, offset, limit, const))
         offset += out[-1].size
     return out
 
@@ -136,7 +159,7 @@ def flat_grad(model: nn.Module, leaves: List[Leaf]) -> torch.Tensor:
     for leaf in leaves:
         g = params[leaf.key].grad
         g = torch.zeros_like(params[leaf.key]) if g is None else g
-        parts.append((g.t() if len(leaf.shape) == 2 else g).reshape(-1))
+        parts.append((g.t() if leaf.kernel else g).reshape(-1))
     return torch.cat(parts).float()
 
 

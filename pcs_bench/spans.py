@@ -32,17 +32,15 @@ from __future__ import annotations
 
 import argparse
 import bisect
-import contextlib
 import json
 import os
 import statistics
 import sys
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from . import harness, trace
 
@@ -51,26 +49,6 @@ FORWARD, ENCODER, SEARCH, BACKWARD = ("pcs.forward", "pcs.encoder",
 SPANS = (FORWARD, ENCODER, SEARCH, BACKWARD)
 OUTSIDE = "outside"
 BUCKETS = SPANS + (OUTSIDE,)
-
-
-@contextlib.contextmanager
-def profiled() -> Iterator[Dict]:
-    """``trace.profiled`` with each event's correlation id (``corr``: a
-    kernel, copy or set shares its CUPTI id with the runtime call that
-    issued it) and its thread (``tid``)."""
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    out: Dict = {}
-    with profile(activities=acts) as prof:
-        yield out
-    out["events"] = [{"cat": trace.category(e), "name": e.name(),
-                      "ts": e.start_ns() * 1e-3,
-                      "dur": e.duration_ns() * 1e-3,
-                      "corr": e.correlation_id(),
-                      "tid": e.start_thread_id()}
-                     for e in prof.profiler.kineto_results.events()]
 
 
 class Timeline:
@@ -115,7 +93,7 @@ def attribute(events: List[Dict], t0_us: float, t1_us: float) -> Dict:
         if ev["cat"] == "user_annotation":
             if ev["name"] in SPANS:
                 spans.append((ev["ts"], ev["ts"] + ev["dur"], ev["name"]))
-            elif main is None and ev["name"] == "bench.window":
+            elif main is None and ev["name"] == trace.WINDOW:
                 main = ev.get("tid")
         elif ev["cat"] == "cuda_runtime":
             calls[ev["corr"]] = ev
@@ -218,18 +196,6 @@ def partition_gaps(att: Dict, summary: Dict) -> Dict[str, float]:
             "syncs": sum(att["syncs"].values()) - summary["syncs"]}
 
 
-def stretch(drv, units: int) -> Dict:
-    """One traced stretch as the harness takes it (``units`` units and
-    the host read inside ``bench.window``), with the correlation ids."""
-    with profiled() as prof:
-        with record_function("bench.window"):
-            for _ in range(units):
-                drv.unit()
-            drv.close()
-    t0, t1 = trace.clock_us(prof["events"], "bench.window")
-    return {"events": prof["events"], "t0_us": t0, "t1_us": t1}
-
-
 def measure(cell: harness.Cell, seed: int, device, warm_s: float,
             stretches: int) -> List[Dict]:
     """Set a cell up from ``seed``, run it ``warm_s`` seconds, then take
@@ -245,7 +211,7 @@ def measure(cell: harness.Cell, seed: int, device, warm_s: float,
     kind = cell.traffic["rate_metric"].split("_")[0]
     out = []
     for i in range(stretches):
-        st = stretch(drv, units)
+        st = trace.stretch(drv, units)
         summary = trace.summarise(st["events"], st["t0_us"], st["t1_us"])
         att = attribute(st["events"], st["t0_us"], st["t1_us"])
         top = {b: sorted(v.items(), key=lambda kv: -kv[1])[:6]

@@ -1,13 +1,14 @@
 """The spans' attribution (``pcs_bench/spans.py``) on a hand-built trace:
 nested spans, a launch from autograd's device thread, overlapping kernels,
 a copy, syncs and idle gaps; the partition sums to ``trace.summarise``'s
-totals; the correlation ids and threads the span profiler keeps change no
-existing reading; and on the CPU, where no device event is traced, the
-readings are None."""
+totals; the correlation ids and threads the profiler keeps change no
+existing reading; the harness gives readers the attribution; and on the
+CPU, where no device event is traced, the readings are None."""
 import glob
 import os
 
 import pytest
+import torch
 
 from pcs_bench import harness, spans, trace
 
@@ -115,27 +116,97 @@ def test_a_drifting_device_clock_shows():
     assert att["early"] == 4 and att["clock_us"] == pytest.approx(7.4)
 
 
-def _ctx(ev):
-    return {"trace": trace.summarise(ev, 0.0, 100.0), "traced_units": 1,
-            "traced_blocks": 1, "window_s": 30.0, "window_blocks": 100,
-            "work": {"flops": 1e12, "gather_bytes": 1e6},
-            "peaks": {"bf16_flops": 989e12, "hbm_bytes_per_s": 3.35e12}}
+PEAKS = {"bf16_flops": 989e12, "hbm_bytes_per_s": 3.35e12}
 
 
-def test_the_extra_keys_change_no_existing_reading():
-    """``summarise`` and every reader of ``metrics/`` read the same from
-    events with the correlation ids and threads as from events
-    without."""
-    ev = events()
+def _ctx(ev, t0, t1, att):
+    return {"trace": trace.summarise(ev, t0, t1), "spans": att,
+            "traced_units": 1, "traced_blocks": 1, "window_s": 30.0,
+            "window_blocks": 100,
+            "work": {"flops": 1e12, "gather_bytes": 1e6}, "peaks": PEAKS}
+
+
+class _Matmuls:
+    """A driver whose unit is a few CPU matmuls."""
+
+    blocks_per_unit = 1
+
+    def unit(self):
+        (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+
+    def close(self):
+        pass
+
+
+def _hand_built():
+    return {"events": events(), "t0_us": 0.0, "t1_us": 100.0}
+
+
+@pytest.mark.parametrize("source", ["hand_built", "profiled"])
+def test_the_extra_keys_change_no_existing_reading(source):
+    """The profiler's events carry each event's correlation id and thread;
+    ``summarise`` and every reader of ``metrics/`` read the same from them
+    as from the events without those keys, from a hand-built stretch and
+    from one ``trace.stretch`` profiled on the CPU."""
+    st = _hand_built() if source == "hand_built" else trace.stretch(
+        _Matmuls(), 2)
+    ev, t0, t1 = st["events"], st["t0_us"], st["t1_us"]
+    assert ev and all(set(e) == {"cat", "name", "ts", "dur", "corr", "tid"}
+                      for e in ev)
     plain = [{k: e[k] for k in ("cat", "name", "ts", "dur")} for e in ev]
-    assert trace.summarise(ev, 0.0, 100.0) == trace.summarise(plain, 0.0,
-                                                              100.0)
+    assert trace.summarise(ev, t0, t1) == trace.summarise(plain, t0, t1)
+    att = spans.attribute(ev, t0, t1)
     names = [os.path.basename(p)[:-3] for p in
              glob.glob(os.path.join(harness.HERE, "metrics", "*.py"))]
     assert names
     for name in names:
         read = harness.reader(name).read
-        assert read(_ctx(ev)) == read(_ctx(plain)), name
+        assert read(_ctx(ev, t0, t1, att)) == read(_ctx(plain, t0, t1,
+                                                         att)), name
+
+
+def test_the_readers_context_attributes_the_stretch(bench, monkeypatch):
+    """A hand-built stretch passed through ``harness.traced_stretch``: the
+    context's ``spans`` is ``spans.attribute`` of it, its ``trace`` is
+    ``summarise``, and a span reader reads the search's busy time over the
+    stretch's blocks."""
+    cell = tiny_cell(bench, "pointnet_s3dis.train_dense")
+    monkeypatch.setattr(trace, "stretch", lambda drv, units: _hand_built())
+    monkeypatch.setattr(harness.peaks, "of", lambda device: PEAKS)
+
+    class Drv:
+        blocks_per_unit = 4
+
+        def block_work(self):
+            return {"flops": 1e12, "gather_bytes": 1e6}
+
+    ctx = harness.traced_stretch(Drv(), cell, 10, 30.0, "cpu")
+    assert ctx["spans"] == spans.attribute(events(), 0.0, 100.0)
+    assert ctx["trace"] == trace.summarise(events(), 0.0, 100.0)
+    assert ctx["traced_blocks"] == 4 * cell.traffic["trace_units"]
+    read = harness.reader("search_ms_per_block.train").read
+    assert read(ctx) == pytest.approx(1e-2 / ctx["traced_blocks"])
+
+
+@pytest.mark.parametrize("workload", ["ecd_s3dis.train_dense",
+                                      "pointnet_s3dis.label_dense"])
+def test_the_span_readers_read_nothing_on_the_cpu(bench, workload,
+                                                  monkeypatch):
+    """A tiny cell's traced stretch through the harness's own context on
+    the CPU: the port opens its search spans, no device event is traced,
+    and every span reader the cell names reads None."""
+    cell = tiny_cell(bench, workload, "float32")
+    monkeypatch.setattr(harness.peaks, "of", lambda device: PEAKS)
+    drv = harness.driver(cell.traffic["entry"])(cell.config, cell.traffic,
+                                                2 ** 31 + 13, "cpu")
+    ctx = harness.traced_stretch(drv, cell, 1, 1.0, "cpu")
+    drv.free()
+    assert ctx["spans"]["device_events"] == 0
+    assert ctx["spans"]["spans"][SEA] == 3 * ctx["traced_blocks"]
+    names = [m["name"] for m in cell.per_layer
+             if m["name"].startswith("search_ms_per_block.")]
+    assert len(names) == 1
+    assert harness.reader(names[0]).read(ctx) is None
 
 
 @pytest.mark.parametrize("name", sorted(spans.METRICS))

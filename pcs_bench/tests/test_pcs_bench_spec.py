@@ -1,7 +1,7 @@
 """BENCHMARK.json against the rules its readers hold it to: names, units and
 keys, one file for every configuration, traffic mix, limit set and
-per-layer metric it names, and every per-layer metric in cells that report
-the end-to-end metric it moves."""
+per-layer metric it names, every per-layer metric in cells that run the
+entry its reader reads and that report the end-to-end metric it moves."""
 import os
 import re
 
@@ -70,10 +70,16 @@ def test_every_named_file_exists(bench):
         assert os.path.isfile(os.path.join(
             harness.HERE, "drivers", cell.traffic["entry"] + ".py"))
         assert cell.limits
+    cells = [w["name"] for w in bench["workloads"]]
     for m in bench["per_layer"]:
         mod = harness.reader(m["name"])
         assert mod.UNIT == m["unit"] and mod.MOVES == m["moves"]
-        assert set(m.get("workloads", [])) <= set(mod.WORKLOADS)
+        # BENCHMARK.json alone names a metric's cells; each has to run the
+        # entry whose context the reader was written for
+        assert not hasattr(mod, "WORKLOADS"), m["name"]
+        for w in m.get("workloads", cells):
+            assert harness.Cell(bench, w).traffic["entry"] == mod.ENTRY, (
+                m["name"], w)
 
 
 @pytest.mark.parametrize("group", ["per_layer", "end_to_end"])

@@ -1,7 +1,8 @@
-"""The profiler's reading of a traced stretch: launches, host syncs, device
-time by kernel, the union of device intervals (busy time), and the longest
-idle gaps named by what the host was doing.  Read from the profiler's
-events, which carry the CUPTI activity categories."""
+"""The traced stretch and the profiler's reading of it: launches, host
+syncs, device time by kernel, the union of device intervals (busy time),
+and the longest idle gaps named by what the host was doing.  Read from
+the profiler's events, which carry the CUPTI activity categories, the
+correlation ids and the threads (``spans.attribute`` reads those)."""
 from __future__ import annotations
 
 import contextlib
@@ -9,6 +10,10 @@ from collections import defaultdict
 from typing import Dict, Iterator, List, Tuple
 
 import torch
+from torch.profiler import record_function
+
+# the host span around a traced stretch
+WINDOW = "bench.window"
 
 LAUNCHES = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
             "cuLaunchKernelEx", "cudaLaunchCooperativeKernel"}
@@ -22,8 +27,11 @@ HOST_CATS = {"cpu_op", "user_annotation", "cuda_runtime"}
 @contextlib.contextmanager
 def profiled() -> Iterator[Dict]:
     """Profile the body (host and device); on exit the yielded dict holds
-    ``events``, the profiler's events as {"cat", "name", "ts", "dur"}
-    (microseconds), read in memory: nothing is written to disk."""
+    ``events``, the profiler's events as {"cat", "name", "ts", "dur"
+    (microseconds), "corr", "tid"}, read in memory: nothing is written to
+    disk.  ``corr`` is the CUPTI correlation id (a kernel, copy or set
+    shares it with the runtime call that issued it), ``tid`` the thread
+    the event started on."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -32,8 +40,24 @@ def profiled() -> Iterator[Dict]:
     with profile(activities=acts) as prof:
         yield out
     out["events"] = [{"cat": category(e), "name": e.name(),
-                      "ts": e.start_ns() * 1e-3, "dur": e.duration_ns() * 1e-3}
+                      "ts": e.start_ns() * 1e-3,
+                      "dur": e.duration_ns() * 1e-3,
+                      "corr": e.correlation_id(),
+                      "tid": e.start_thread_id()}
                      for e in prof.profiler.kineto_results.events()]
+
+
+def stretch(drv, units: int) -> Dict:
+    """One traced stretch of a driver: ``units`` units and the host read,
+    inside the host span ``WINDOW``.  Returns its ``events`` and the span's
+    start and end, ``t0_us`` and ``t1_us``."""
+    with profiled() as prof:
+        with record_function(WINDOW):
+            for _ in range(units):
+                drv.unit()
+            drv.close()
+    t0, t1 = clock_us(prof["events"], WINDOW)
+    return {"events": prof["events"], "t0_us": t0, "t1_us": t1}
 
 
 def category(e) -> str:
